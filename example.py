@@ -1,4 +1,4 @@
-"""End-to-end usage example (the TPU build's counterpart of the reference's
+"""End-to-end usage example (this build's counterpart of the reference's
 example.py): load an image, compute its report, save the visualizations,
 and print the fixed-schema JSON.
 

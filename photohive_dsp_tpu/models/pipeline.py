@@ -21,7 +21,6 @@ Behavioral subtleties honored (see SURVEY.md §3.1):
 from __future__ import annotations
 
 import functools
-import os
 from typing import NamedTuple, Tuple
 
 import jax
@@ -56,26 +55,12 @@ class ReportTables(NamedTuple):
 
     polar: PolarTables
     octree: OctreeTables
-    # Permuted polar tables consuming the Pallas FFT kernels' scrambled
-    # magnitude layout directly (ops/pallas_fft.py); None when that path
-    # is off or the shape is ineligible — the pipeline falls back to the
-    # XLA rfft2 + ``polar``.
-    polar_scrambled: PolarTables = None
 
     @classmethod
-    def build(cls, height: int, width: int, cfg: ReportConfig,
-              scrambled_fft: bool = None) -> "ReportTables":
-        from ..ops import pallas_fft
-
-        if scrambled_fft is None:
-            scrambled_fft = (pallas_fft.use_pallas_fft(height, width)
-                             and jax.default_backend() not in
-                             ("cpu", "gpu", "cuda", "rocm", "METAL"))
-        ps = (pallas_fft.scrambled_polar_tables(height, width, cfg)
-              if scrambled_fft else None)
+    def build(cls, height: int, width: int,
+              cfg: ReportConfig) -> "ReportTables":
         return cls(polar=PolarTables.for_shape(height, width, cfg),
-                   octree=OctreeTables.for_config(cfg),
-                   polar_scrambled=ps)
+                   octree=OctreeTables.for_config(cfg))
 
 
 def full_report(rgb: jnp.ndarray, boxes: jnp.ndarray,
@@ -118,72 +103,30 @@ def full_report(rgb: jnp.ndarray, boxes: jnp.ndarray,
 
 def full_report_batched(rgb: jnp.ndarray, boxes: jnp.ndarray,
                         boxes_valid: jnp.ndarray, tables: ReportTables,
-                        cfg: ReportConfig,
-                        use_pallas: bool = False,
-                        rgb_u8: jnp.ndarray = None) -> ReportData:
+                        cfg: ReportConfig) -> ReportData:
     """Batched report: (B, 3, H, W) -> ReportData with leading batch dim.
 
-    The throughput path: elementwise/FFT/stencil stages are vmapped XLA (they
-    fuse well); the histogram-shaped stages (saliency sort, palette pixel
-    pass, polar binning) switch to the Pallas kernels on TPU
-    (``use_pallas=True``), sharing each one-hot bin map across the batch.
+    The throughput path: elementwise/FFT/stencil stages are vmapped; the
+    histogram-shaped stages (cell counts, saliency sort, palette pixel
+    pass) run batched so that the palette tier switch takes one scalar
+    predicate for the whole batch.
     """
     from ..ops.blur import blur_profile_bins_batched
-    from ..ops.quantize import (color_palette_batched,
-                                color_palette_batched_from_rgb,
-                                use_rgb_palette_path)
+    from ..ops.quantize import color_palette_batched
 
     down = jax.vmap(lambda x: downsample_rgb(x, cfg.downsample_rate))(rgb)
     pgm = jax.vmap(lambda x: rgb_to_pgm(x[0], x[1], x[2]))(rgb)
 
     stats = jax.vmap(lambda x: rgb_statistics(x[0], x[1], x[2]))(rgb)
-    if use_rgb_palette_path(use_pallas, down.shape[2], down.shape[3]):
-        # TPU fast path: HSV lives only inside the rgb-native kernels
-        # (never in HBM); the counts kernel also accumulates mean
-        # saturation's numerator.  When the caller provides the planar
-        # uint8 frames and no decimation is configured, the kernels
-        # consume u8 directly (in-kernel /255.0, bit-identical) and the
-        # f32 rgb planes never materialize for the palette stage.
-        pal_in = down
-        if rgb_u8 is not None and cfg.downsample_rate == 1 and \
-                os.environ.get("PHOTOHIVE_U8_KERNELS", "1") == "1":
-            pal_in = rgb_u8
-        palette, s_sum = color_palette_batched_from_rgb(pal_in, cfg,
-                                                        tables.octree)
-        s_bar = s_sum / jnp.float32(down.shape[2] * down.shape[3])
-    else:
-        h, s, v = jax.vmap(lambda x: rgb_to_hsv(x[0], x[1], x[2]))(down)
-        s_bar = jax.vmap(mean_saturation)(s)
-        palette = color_palette_batched(h, s, v, cfg, tables.octree,
-                                        use_pallas)
+    h, s, v = jax.vmap(lambda x: rgb_to_hsv(x[0], x[1], x[2]))(down)
+    s_bar = jax.vmap(mean_saturation)(s)
+    palette = color_palette_batched(h, s, v, cfg, tables.octree)
     sharp = variance_sharpness_batched(pgm, boxes, boxes_valid)
 
     dc = (stats[:, 0] + stats[:, 1] + stats[:, 2]) / 3.0
-    if use_pallas and tables.polar_scrambled is not None:
-        # Pallas 2-D FFT kernels; the scrambled spectrum layout is
-        # consumed by the permuted bin tables (ops/pallas_fft.py).
-        from ..ops.pallas_fft import (FftPlan, blur_bins_scrambled_lognorm,
-                                      magnitude_fft_scrambled_normalized)
-
-        plan = FftPlan.for_shape(pgm.shape[1], pgm.shape[2])
-        if tables.polar_scrambled.dict_ids is not None and \
-                os.environ.get("PHOTOHIVE_POLAR_LOCAL", "1") == "1":
-            # fused log-normalize inside the local polar kernel: the
-            # normalized spectrum never materializes.
-            bins = blur_bins_scrambled_lognorm(
-                pgm - dc[:, None, None], plan, tables.polar_scrambled,
-                cfg.angle_partitions, cfg.radius_partitions)
-        else:
-            mag = magnitude_fft_scrambled_normalized(
-                pgm - dc[:, None, None], plan)
-            bins = blur_profile_bins_batched(
-                mag, tables.polar_scrambled, cfg.angle_partitions,
-                cfg.radius_partitions, use_pallas=True)
-    else:
-        mag = jax.vmap(magnitude_fft_normalized)(pgm - dc[:, None, None])
-        bins = blur_profile_bins_batched(mag, tables.polar,
-                                         cfg.angle_partitions,
-                                         cfg.radius_partitions, use_pallas)
+    mag = jax.vmap(magnitude_fft_normalized)(pgm - dc[:, None, None])
+    bins = blur_profile_bins_batched(mag, tables.polar, cfg.angle_partitions,
+                                     cfg.radius_partitions)
     angles, mags = jax.vmap(
         lambda bb: vectorize_blur_profile(bb, cfg))(bins)
 

@@ -7,7 +7,7 @@ reference: src/blur_profile.c
     circular 5-tap smoothing, local-maxima streak detection, and conversion
     to <=10 (angle, magnitude) blur vectors.
 
-TPU-native binning: the bin id of every FFT pixel depends only on the image
+Binning: the bin id of every FFT pixel depends only on the image
 shape (see ops/geometry.py), so the scatter becomes a *static gather*: pixel
 values are gathered into per-bin padded rows (zeros past each bin's count)
 and tree-summed along the row — no scatter, no atomics, exact per-bin means.
@@ -37,26 +37,17 @@ from .geometry import polar_geometry
 #   2160x3840    4.15 M        5171    59.6 MB   16.6 MB    3.6x
 #   4320x7680    16.59 M       20662   238.0 MB  66.4 MB    3.6x
 #
-# Above the table budget the XLA path drops the table entirely
-# (pad_index=None) and reduces through the flat bin-ids chunked one-hot
-# contraction instead (O(1) extra memory beyond the P int32 ids — the
-# reference's scatter, src/blur_profile.c:87-100, is O(1) too).  The
-# Pallas TPU path always uses flat ids and never pays the table.  The
-# budget is platform-aware: the blowup matters in HBM (TPU, where the XLA
-# path only runs under PHOTOHIVE_NO_PALLAS), not host RAM — and on CPU
-# the gather is several times faster than the one-hot contraction, so
-# hosts keep the table until it is genuinely large.
+# Above the table budget (256 MB unless PHOTOHIVE_POLAR_TABLE_MB says
+# otherwise) the table is dropped (pad_index=None) and the bins reduce
+# through the flat bin-ids chunked one-hot contraction instead (O(1)
+# extra memory beyond the P int32 ids — the reference's scatter,
+# src/blur_profile.c:87-100, is O(1) too).  Below it the gather is the
+# faster of the two.
 def _pad_table_budget() -> int:
     import os
 
     env = os.environ.get("PHOTOHIVE_POLAR_TABLE_MB")
-    if env:
-        return int(float(env) * 1e6)
-    import jax
-
-    on_host = jax.default_backend() in ("cpu", "gpu", "cuda", "rocm",
-                                        "METAL")
-    return 256_000_000 if on_host else 24_000_000
+    return int(float(env) * 1e6) if env else 256_000_000
 
 
 _FLAT_CHUNK = 1 << 16
@@ -66,22 +57,15 @@ class PolarTables(NamedTuple):
     """Device-resident polar binning constants (see geometry.PolarGeometry).
 
     ``pad_index`` is None for shapes whose gather table would exceed the
-    platform budget (_pad_table_budget); the XLA path then reduces via
-    flat bin ids."""
+    budget (_pad_table_budget); the bins then reduce via flat bin ids."""
 
-    pad_index: jnp.ndarray   # (A*R, Lmax) int32 (gather path, XLA/CPU) | None
+    pad_index: jnp.ndarray   # (A*R, Lmax) int32 (gather path) | None
     bin_counts: jnp.ndarray  # (A*R,) int32
-    bin_ids: jnp.ndarray     # (H * fft_width,) int32 (Pallas / flat path)
-    # Local-dictionary tables for the chunked Pallas kernel (None on paths
-    # that build tables directly, e.g. the per-shard sharded body):
-    local_ids: jnp.ndarray = None  # (n_chunks, 512, 1) int32
-    dict_ids: jnp.ndarray = None   # (n_chunks, K) int32, sentinel A*R
+    bin_ids: jnp.ndarray     # (H * fft_width,) int32 (flat path)
 
     @classmethod
     def for_shape(cls, height: int, width: int, cfg: ReportConfig,
                   max_table_bytes: int = None) -> "PolarTables":
-        from .geometry import polar_chunk_tables
-
         geom = polar_geometry(height, width, cfg.angle_partitions,
                               cfg.radius_partitions)
         budget = (max_table_bytes if max_table_bytes is not None
@@ -89,20 +73,16 @@ class PolarTables(NamedTuple):
         pad = None
         if geom.pad_index.size * 4 <= budget:
             pad = jnp.asarray(geom.pad_index)
-        num_bins = cfg.angle_partitions * cfg.radius_partitions
-        dict_ids, local_ids = polar_chunk_tables(geom.bin_ids, num_bins)
         return cls(pad_index=pad,
                    bin_counts=jnp.asarray(geom.bin_counts),
-                   bin_ids=jnp.asarray(geom.bin_ids),
-                   local_ids=jnp.asarray(local_ids),
-                   dict_ids=jnp.asarray(dict_ids))
+                   bin_ids=jnp.asarray(geom.bin_ids))
 
 
 def polar_bin_sums_flat_xla(flat_vals: jnp.ndarray, bin_ids: jnp.ndarray,
                             num_bins: int) -> jnp.ndarray:
     """Flat-ids bin sums without the padded gather table: (P,) f32 x (P,)
-    int32 -> (num_bins,) f32 via a scan of chunked one-hot contractions
-    (the XLA twin of pallas_kernels.polar_bin_sums).  Sentinel ids >=
+    int32 -> (num_bins,) f32 via a scan of chunked one-hot contractions.
+    Sentinel ids >=
     num_bins match no one-hot row and drop out, so callers pad freely."""
     p = flat_vals.shape[0]
     pad = (-p) % _FLAT_CHUNK
@@ -153,31 +133,10 @@ def blur_profile_bins(mag_norm: jnp.ndarray, tables: PolarTables,
 
 
 def blur_profile_bins_batched(mag_norm: jnp.ndarray, tables: PolarTables,
-                              num_angle_bins: int, num_radius_bins: int,
-                              use_pallas: bool = False) -> jnp.ndarray:
-    """Batched bin means: (B, H, W//2+1) -> (B, A, R).
-
-    The Pallas path contracts the shared one-hot bin map against the whole
-    batch on the MXU (ops/pallas_kernels.polar_bin_sums); the XLA path is
-    the vmapped static gather."""
-    b = mag_norm.shape[0]
-    num_bins = num_angle_bins * num_radius_bins
-    if use_pallas:
-        import os
-
-        from . import pallas_kernels as pk
-        if tables.dict_ids is not None and \
-                os.environ.get("PHOTOHIVE_POLAR_LOCAL", "1") == "1":
-            sums = pk.polar_bin_sums_local(
-                mag_norm.reshape(b, -1), tables.local_ids, tables.dict_ids,
-                num_bins)
-        else:
-            sums = pk.polar_bin_sums(mag_norm.reshape(b, -1),
-                                     tables.bin_ids, num_bins)
-        counts = tables.bin_counts.astype(mag_norm.dtype)
-        means = jnp.where(tables.bin_counts[None, :] > 0,
-                          sums / jnp.maximum(counts, 1.0)[None, :], 0.0)
-        return means.reshape(b, num_angle_bins, num_radius_bins)
+                              num_angle_bins: int, num_radius_bins: int)\
+        -> jnp.ndarray:
+    """Batched bin means: (B, H, W//2+1) -> (B, A, R), the vmapped
+    static gather."""
     return jax.vmap(
         lambda m: blur_profile_bins(m, tables, num_angle_bins,
                                     num_radius_bins))(mag_norm)
@@ -205,7 +164,7 @@ def vectorize_blur_profile(bins: jnp.ndarray, cfg: ReportConfig):
         & (smooth > avg * cfg.fft_streak_thresh)
 
     # Everything below is computed for *every* angle (vectorized — no sorts
-    # or data-dependent gathers; TPU-friendly), then the first 10 maxima in
+    # or data-dependent gathers), then the first 10 maxima in
     # ascending angle order are selected into the 10 output slots (the
     # reference appends i=0, interior ascending, then i=A-1 — ascending).
     rank = jnp.cumsum(is_max) - 1                           # slot per maxima

@@ -16,24 +16,18 @@ import jax.numpy as jnp
 
 from ..config import MAX_SATURATION, MAX_VALUE
 
-# f32(1/255), the correctly rounded reciprocal used by u8_to_unit_f32
-# (a python float so Pallas kernels can share it as an immediate).
-INV255_F32 = 0.003921568859368563
-_INV255 = INV255_F32
+# f32(1/255), the correctly rounded reciprocal used by u8_to_unit_f32.
+_INV255 = 0.003921568859368563
 
 
 def u8_to_unit_f32(x) -> jnp.ndarray:
     """uint8/int 0..255 -> f32 x/255.0 with CORRECTLY ROUNDED results,
     division-free.
 
-    Why not ``/ 255.0``: on this TPU, XLA's jit divide and Mosaic's
-    in-kernel divide lower to *different* reciprocal approximations (they
-    disagree with each other on 255/256 values and with the correctly
-    rounded host quotient on 126/256 — measured exhaustively, see
-    tools/tpu_parity_check.py "u8 ingest exact").  This sequence uses only
-    IEEE mul/add (exact on the VPU, in XLA, in numpy and in Pallas
-    interpret mode), so every ingest flavor — host numpy, on-device XLA,
-    and the u8-native Mosaic kernels — produces bit-identical planes:
+    Why not ``/ 255.0``: a compiled divide may lower to a reciprocal
+    approximation that differs from the correctly rounded host quotient
+    in the last bit.  This sequence uses only IEEE mul/add, so host
+    numpy and the on-device XLA ingest produce bit-identical planes:
 
         q0 = fl(x * c1)            c1 = f32(1/255)
         s  = q0 * 256              exact: +8 on the exponent via bitcast
@@ -44,15 +38,14 @@ def u8_to_unit_f32(x) -> jnp.ndarray:
     The *256 runs as an integer exponent add on the bit pattern because a
     literal ``q0 * 256.0`` gets constant-folded by XLA's simplifier into
     ``x * fold(c1*256)``, which re-rounds and breaks exactness on 121/256
-    inputs (measured); XLA does not reason through bitcasts, and Mosaic
-    lowers them natively (the bf16 split tricks already rely on that).
-    FMA contraction of the remaining mul/adds is harmless: the fused
-    forms are exact (d) or Markstein-correct (q), landing on the same
-    bits — both variants verified exhaustively.
+    inputs (measured); XLA does not reason through bitcasts.  FMA
+    contraction of the remaining mul/adds is harmless: the fused forms
+    are exact (d) or Markstein-correct (q), landing on the same bits —
+    both variants verified exhaustively.
 
     Verified equal to the correctly rounded quotient for all 256 inputs
-    (pinned by tests/test_pallas_interpret.py::test_u8_to_unit_f32_exact
-    on CPU and tools/tpu_parity_check.py "u8 ingest exact" on silicon)."""
+    (tests/test_ops.py::test_u8_to_unit_f32_exact on the CPU; the
+    ingest phase of chip_smoke.py on the GPU)."""
     import jax
 
     xf = x.astype(jnp.float32)

@@ -6,7 +6,7 @@ reference: src/fft_processing.c
   * pgm_normalize_fft (:173-213): global max, G_s = 1/(2*log(sqrt(max)+1)),
     then x < 1 -> 0 else log(x)*G_s (log-compressed to [0, 1]).
 
-TPU-native path: XLA's native FFT op via jnp.fft.rfft2 (complex64).  The
+XLA's native FFT op via jnp.fft.rfft2 (complex64; cuFFT on the GPU).  The
 input has its DC bias removed beforehand (reference src/blur_profile.c:233
 subtracts the *RGB-brightness* mean, not the luma mean — see pipeline), which
 keeps the spectrum's dynamic range well inside f32 after log compression.

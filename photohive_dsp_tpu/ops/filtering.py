@@ -23,9 +23,8 @@ def laplacian_3x3(x: jnp.ndarray) -> jnp.ndarray:
 
     Separable formulation: one horizontal triple-sum (the only lane-shifted
     pass), then a vertical triple-sum of it, and 9x - box3x3 == 8x - the 8
-    neighbors.  The 8-shifted-adds form paid six more lane-rotation passes
-    on TPU (misaligned (H+2, W+2) slices); this halved the isolated
-    Laplacian wall on-chip.  FP results differ from the shifted-adds form
+    neighbors: three shifted reads instead of eight.  FP results differ
+    from the shifted-adds form
     only by f32 reassociation (~1e-6 absolute) — both forms reassociate
     the C reference's row-major tap loop, and the golden tests bound the
     final sharpness at rtol 1e-5.
@@ -57,8 +56,7 @@ def filter_image(x: jnp.ndarray, taps) -> jnp.ndarray:
 
     General form of reference filter_image (src/filtering.c:81-107):
     out-of-image taps contribute zero, no kernel flip (correlation), no
-    normalization.  Runs as one XLA convolution (MXU-eligible for larger
-    taps); the 3x3 Laplacian keeps its dedicated shifted-add form above.
+    normalization.  Runs as one XLA convolution; the 3x3 Laplacian keeps its dedicated shifted-add form above.
     """
     taps = jnp.asarray(taps, x.dtype)
     fh, fw = taps.shape

@@ -99,44 +99,6 @@ def _reference_polar_map(height: int, width: int) -> tuple[np.ndarray, np.ndarra
     return r_sq, phi
 
 
-def polar_chunk_tables(bin_ids: np.ndarray, num_bins: int,
-                       chunk: int = 512):
-    """Per-chunk bin dictionaries for the local polar kernel.
-
-    In natural (row-major spectrum) order a 512-pixel chunk touches at
-    most ~64 DISTINCT bins (measured: max 55 at 1080p, 46 at 4K, 63 at
-    720p) even though the id SPAN can cover the whole table near DC — so
-    the kernel can one-hot against a per-chunk dictionary instead of the
-    full (A*R, chunk) table, cutting the contraction and the compare work
-    ~45x.  Returns:
-
-      dict_ids:  (n_chunks, K) int32 — global bin id per local slot,
-                 sentinel ``num_bins`` in unused slots (and for the
-                 padding pseudo-bin), K = max distinct rounded up to 8.
-      local_ids: (n_chunks, chunk, 1) int32 — each pixel's local slot,
-                 PRE-TRANSPOSED (pixels on sublanes) so the kernel's
-                 one-hot is born in the GEMM's natural rhs layout.
-    """
-    p = bin_ids.size
-    pad = (-p) % chunk
-    ids = np.concatenate(
-        [bin_ids, np.full(pad, num_bins, np.int32)]).reshape(-1, chunk)
-    n = ids.shape[0]
-    uniq = [np.unique(c) for c in ids]
-    k = max(len(u) for u in uniq)
-    k = max(8, -(-k // 8) * 8)
-    # The kernel processes groups of 8 chunks per grid step (the output
-    # block's sublane dim must be a multiple of 8); pad with no-match
-    # chunks: local id k matches no one-hot row, dict slots stay sentinel.
-    n_pad = -(-n // 8) * 8
-    dict_ids = np.full((n_pad, k), num_bins, np.int32)
-    local = np.full((n_pad, chunk), k, np.int32)
-    for i, u in enumerate(uniq):
-        dict_ids[i, :len(u)] = u
-        local[i] = np.searchsorted(u, ids[i])
-    return dict_ids, local.reshape(n_pad, chunk, 1)
-
-
 @functools.lru_cache(maxsize=32)
 def polar_geometry(
     height: int, width: int, num_angle_bins: int, num_radius_bins: int
@@ -208,7 +170,7 @@ class OctreeGeometry(NamedTuple):
     # candidates of any cell (tied parents of group_irregular_pixels,
     # src/color_quantization.c:376-400) all share one distance-rank value, so
     # no cell can ever have more candidates than the largest equal-rank group
-    # in its dist_ranks row.  Sizes the Pallas palette kernel's tie tables.
+    # in its dist_ranks row.  Sizes the palette pass's candidate width.
     max_tie_candidates: int
 
 

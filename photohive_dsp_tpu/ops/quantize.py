@@ -1,17 +1,14 @@
 """HSV-grid color quantization ("octree") -> fixed-shape color palette.
 
 reference: src/color_quantization.c.  The reference is a linked-list pixel
-bucketing structure; the TPU-native reformulation keeps every step as
+bucketing structure; the reformulation keeps every step as
 fixed-shape dense math:
 
   1. **Cell assignment** (arm_octree, :108-161): per-pixel integer cell id
      over C = h*s*v + v + 1 cells.  The reference's gray-cell index contains
      a premature int cast — ``(int)(v - black)`` is always 0 for v<1 — so all
      gray pixels land in the *first* gray cell; reproduced faithfully.
-  2. **Cell histogram**: scatter-free — a fused compare-reduce (used on
-     every path: it measured faster than the Pallas one-hot kernel inside
-     the fused pipeline; pallas_kernels.cell_counts_batched remains as
-     the standalone-kernel alternative).
+  2. **Cell histogram**: a scatter-add of one per pixel into C bins.
   3. **Saliency ordering** (find_valid_octree_parents, :174-203 +
      custom_sort src/utilities.c:132-153): the reference insertion-sorts cell
      ids with the comparator ``(int)(saliency_b - saliency_a)`` — a
@@ -33,8 +30,9 @@ fixed-shape dense math:
   6. **Palette averaging** (calculate_avg_hsv, :510-576): per-parent means
      with the hue-rotation offset trick (rotate by 180-parent_h, wrap, mean,
      rotate back), from per-parent [sum wrapped-hue, sum s, sum v, count]
-     accumulated in one pass over pixels (scan of one-hot matmuls in the XLA
-     path; ops/pallas_kernels.palette_sums_by_k on TPU).
+     accumulated in one pass over pixels (a scan of segment sums over
+     64k-pixel chunks, as masked reductions so that the sums do not
+     depend on the order in which the device adds).
 """
 
 from __future__ import annotations
@@ -48,7 +46,7 @@ import numpy as np
 from ..config import ReportConfig
 from .geometry import octree_geometry
 
-_CHUNK = 1 << 16  # pixels per one-hot matmul chunk
+_CHUNK = 1 << 16  # pixels per segment-sum chunk
 
 
 class OctreeTables(NamedTuple):
@@ -101,31 +99,13 @@ def assign_cells(h: jnp.ndarray, s: jnp.ndarray, v: jnp.ndarray,
 
 
 def cell_counts(cells: jnp.ndarray, num_cells: int) -> jnp.ndarray:
-    """Pixel count per cell, int32.  Results are backend-identical
-    (exact integer adds in any order); the lowering is routed:
+    """Pixel count per cell, int32 (exact integer adds in any order).
 
-    * hosts (cpu/gpu): scatter-add — O(P), lowers to a tight loop.  The
-      TPU compare-reduce formulation measured ~40x slower here (684 ms
-      for 4x720p: the (P, C) broadcast materializes on the VPU-less CPU).
-    * TPU: fused (P, C) one-hot compare-reduce — scatters serialize on
-      TPU; inside the fused program this measured ~2x faster than even
-      the Pallas one-hot histogram kernel (still available as
-      pallas_kernels.cell_counts_batched).
-    """
+    Sentinel cells (== num_cells, padded pixels) land in the extra
+    trailing bucket and are dropped."""
     flat = cells.reshape(-1)
-    if jax.default_backend() in ("cpu", "gpu", "cuda", "rocm", "METAL"):
-        # sentinel cells (== num_cells, padded pixels) land in the extra
-        # trailing bucket and are dropped, like the iota mismatch below.
-        return jnp.zeros((num_cells + 1,), jnp.int32).at[
-            jnp.minimum(flat, num_cells)].add(1)[:num_cells]
-    pad = (-flat.size) % 128
-    if pad:
-        flat = jnp.concatenate(
-            [flat, jnp.full((pad,), num_cells, jnp.int32)])
-    c2 = flat.reshape(-1, 128)
-    iota = jnp.arange(num_cells, dtype=jnp.int32)
-    return jnp.sum(c2[:, :, None] == iota[None, None, :], axis=(0, 1),
-                   dtype=jnp.int32)
+    return jnp.zeros((num_cells + 1,), jnp.int32).at[
+        jnp.minimum(flat, num_cells)].add(1)[:num_cells]
 
 
 def saliency_f32(counts: jnp.ndarray, s_v_f32: jnp.ndarray,
@@ -153,10 +133,7 @@ def margin_insertion_argsort(sal: jnp.ndarray) -> jnp.ndarray:
     C=112 this is ~12k vector-lane ops, invisible next to the per-pixel
     stages; at the largest legal config (h_partitions=360 -> C=2164) it is
     ~4.7M lane ops on 2163 dependent steps, still far below one 1080p
-    pixel pass but the dominant *serial* chain in the program.  The Pallas
-    kernel (pallas_kernels.margin_sort) unrolls its steps straight-line,
-    so saliency_argsort routes C > _PALLAS_SORT_MAX_C configs here instead
-    (an unrolled 2000-step Mosaic kernel would explode compile time).
+    pixel pass but the dominant *serial* chain in the program.
     """
     c = sal.shape[0]
     iota = jnp.arange(c, dtype=jnp.int32)
@@ -177,28 +154,6 @@ def margin_insertion_argsort(sal: jnp.ndarray) -> jnp.ndarray:
                       jnp.where(iota <= i, shifted, order)))
         return new_order
     return jax.lax.fori_loop(1, c, body, iota)
-
-
-# Above this cell count the Pallas margin-sort kernel (which unrolls its
-# C-1 insertion steps straight-line for speed at the default C=112) is
-# routed back to the fori_loop emulation: a multi-thousand-step unrolled
-# Mosaic kernel costs minutes of compile for a sort that is ~0.1% of the
-# program.  The largest legal config (h_partitions=360, s=2, v=3) has
-# C=2164.
-_PALLAS_SORT_MAX_C = 512
-
-
-def saliency_argsort(sal: jnp.ndarray, use_pallas: bool) -> jnp.ndarray:
-    """Batched margin argsort (B, C) -> (B, C) with kernel routing.
-
-    The Pallas kernel below _PALLAS_SORT_MAX_C cells on TPU; the XLA
-    fori_loop otherwise (see margin_insertion_argsort's cost note).
-    Identical results either way — both are exact comparator emulations.
-    """
-    if use_pallas and sal.shape[-1] <= _PALLAS_SORT_MAX_C:
-        from . import pallas_kernels as pk
-        return pk.margin_sort(sal)
-    return jax.vmap(margin_insertion_argsort)(sal)
 
 
 def select_valid_parents(counts: jnp.ndarray, order: jnp.ndarray,
@@ -227,8 +182,7 @@ def candidate_slots(assign: "ParentAssignment", num_cells: int,
     degenerates to the unique parent when there is one candidate.
     ``q_pad`` (static, from geometry.max_tie_candidates) bounds the
     count: tied candidates share one distance-rank value, so no cell
-    exceeds the largest equal-rank group.  Shared by the Pallas LUT
-    builder and the XLA pixel pass."""
+    exceeds the largest equal-rank group."""
     c = num_cells
     iota_k = jnp.arange(c, dtype=jnp.int32)
     big = jnp.int32(1 << 30)
@@ -272,7 +226,7 @@ def parent_assignment_from_order(counts: jnp.ndarray, order: jnp.ndarray,
                                  total_pixels: int, cfg: ReportConfig,
                                  tables: OctreeTables) -> ParentAssignment:
     """Coverage selection + nearest-parent map, given the saliency order
-    (so the order can come from either the XLA or the Pallas sort)."""
+    (so a batched caller can vmap the sort separately)."""
     c = cfg.num_cells
     n_valid, valid_sorted = select_valid_parents(counts, order,
                                                  total_pixels, cfg)
@@ -324,19 +278,15 @@ def palette_pixel_sums(h: jnp.ndarray, s: jnp.ndarray, v: jnp.ndarray,
     order = assign.order
     centers_by_k = tables.centers[order]          # (C, 3) in valid order
     offsets = 180.0 - tables.centers[:, 0]        # (C,) per parent cell id
-    # Candidate-LUT tie-break (the Pallas kernels' formulation, shared
-    # table): gather each pixel's <= q_pad candidates instead of scoring
-    # all C parents — the (chunk, C) distance matrix was the XLA path's
+    # Candidate-LUT tie-break: gather each pixel's <= q_pad candidates
+    # instead of scoring all C parents — the (chunk, C) distance matrix was the XLA path's
     # dominant cost (~1300 flops/px at C=112 vs ~100 at q_pad=8).  The
     # selected parent is identical: candidates are the allowed set in
     # ascending valid order, argmin takes the first minimum, and for
     # untied cells the single candidate IS parent_of_cell.
     if q_pad is None:
-        q_pad = max(8,
-                    -(-octree_geometry(cfg).max_tie_candidates // 8) * 8)
+        q_pad = _q_full(cfg)
     cand_k = candidate_slots(assign, c, q_pad)     # (C, q_pad), sentinel c
-    _host_backend = jax.default_backend() in ("cpu", "gpu", "cuda", "rocm",
-                                              "METAL")
 
     p = hf.shape[0]
     pad = (-p) % _CHUNK
@@ -346,7 +296,6 @@ def palette_pixel_sums(h: jnp.ndarray, s: jnp.ndarray, v: jnp.ndarray,
         vf = jnp.concatenate([vf, jnp.zeros((pad,), vf.dtype)])
         cells = jnp.concatenate([cells, jnp.full((pad,), c, jnp.int32)])
     n_chunks = hf.shape[0] // _CHUNK
-    iota_c = jnp.arange(c, dtype=jnp.int32)
 
     # Per-cell parent for the q_pad == 1 tier: when no populated cell is
     # tied, every pixel's parent is a pure cell lookup — no distances.
@@ -375,23 +324,9 @@ def palette_pixel_sums(h: jnp.ndarray, s: jnp.ndarray, v: jnp.ndarray,
         temp = hc + off
         temp = jnp.where(temp > 360.0, temp - 360.0,
                          jnp.where(temp < 0.0, temp + 360.0, temp))
-        w = in_image.astype(jnp.float32)
-        vals = jnp.stack([temp * w, sc * w, vc * w, w], axis=1)  # (chunk, 4)
-        if _host_backend:
-            # Hosts: scatter-add (segment_sum) — O(chunk) work where the
-            # one-hot GEMM is O(chunk*C); XLA:CPU lowers it to a tight
-            # scatter loop.  Kept off TPU, where scatters serialize and
-            # the MXU eats the one-hot contraction for free.  Summation
-            # ORDER differs from the GEMM (both are f32-ulp-level
-            # reorderings of the same addends; counts stay exact ints).
-            seg = jnp.where(in_image, parent, c)
-            return acc + jax.ops.segment_sum(vals, seg,
-                                             num_segments=c + 1)[:c], None
-        onehot = ((parent[:, None] == iota_c[None, :]) & in_image[:, None]
-                  ).astype(jnp.float32)
-        return acc + jnp.dot(onehot.T, vals,
-                             preferred_element_type=jnp.float32,
-                             precision=jax.lax.Precision.HIGHEST), None
+        vals = jnp.stack([temp, sc, vc], axis=1)        # (chunk, 3)
+        seg = jnp.where(in_image, parent, c)
+        return acc + _bucket_sums(vals, seg, c), None
 
     init = jnp.zeros((c, 4), jnp.float32)
     sums, _ = jax.lax.scan(
@@ -401,20 +336,27 @@ def palette_pixel_sums(h: jnp.ndarray, s: jnp.ndarray, v: jnp.ndarray,
     return sums
 
 
+def _bucket_sums(vals: jnp.ndarray, seg: jnp.ndarray,
+                 num_segments: int) -> jnp.ndarray:
+    """(num_segments, 4) f32 [sum hue, sum s, sum v, count] of the rows of
+    ``vals`` (P, 3) by segment id; rows with an id out of range drop out.
+
+    A masked sum over every bucket (O(P * num_segments) work, fused by
+    XLA into one reduction) instead of a scatter-add: XLA reduces in a
+    fixed order, so the sums are the same bits on every call, where the
+    GPU's f32 scatter-add runs on float atomics and changes the last bits
+    from call to call."""
+    vals = jnp.concatenate([vals, jnp.ones_like(vals[:, :1])], axis=1)
+    hit = seg[:, None] == jnp.arange(num_segments, dtype=seg.dtype)[None, :]
+    return jnp.sum(jnp.where(hit[:, :, None], vals[:, None, :], 0.0), axis=0)
+
+
 def palette_finalize(sums: jnp.ndarray, assign: ParentAssignment,
                      total_pixels: int, tables: OctreeTables)\
         -> PaletteResult:
     """Palette averages in valid order (reference :510-576)."""
-    per_parent = sums[assign.order]               # (C, 4) slot k <- order[k]
-    return palette_finalize_by_k(per_parent, assign, total_pixels, tables)
-
-
-def palette_finalize_by_k(per_parent: jnp.ndarray, assign: ParentAssignment,
-                          total_pixels: int, tables: OctreeTables)\
-        -> PaletteResult:
-    """Finalize from sums already laid out per valid-order slot (the Pallas
-    kernel's native output layout)."""
     order = assign.order
+    per_parent = sums[order]                      # (C, 4) slot k <- order[k]
     offsets = 180.0 - tables.centers[:, 0]
     n_k = per_parent[:, 3]
     n_safe = jnp.maximum(n_k, 1.0)
@@ -444,194 +386,13 @@ def color_palette(h: jnp.ndarray, s: jnp.ndarray, v: jnp.ndarray,
     return palette_finalize(sums, assign, total_pixels, tables)
 
 
-def palette_kernel_variant() -> str:
-    """Selected Pallas palette kernel ('candidate', 'bf16', or 'cwide').
-
-    Read at TRACE time; any function that caches a traced program around
-    the palette pass must include this value in its cache key (the
-    lru-cached builders in models/batch.py and parallel/ do), or a flip
-    of the env var mid-process would silently reuse the old kernel.
-    """
-    import os
-
-    # Default 'bf16' (ops/pallas_kernels_bf16.py): measured 9-11% faster
-    # end-to-end than 'candidate' on silicon (tools/variant_probe.py,
-    # round 4) with bit-identical palette output.
-    return os.environ.get("PHOTOHIVE_PALETTE_KERNEL", "bf16")
-
-
-def palette_sums_by_k_auto(hf: jnp.ndarray, sf: jnp.ndarray,
-                           vf: jnp.ndarray,
-                           assign: ParentAssignment, counts: jnp.ndarray,
-                           cfg: ReportConfig, tables: OctreeTables)\
-        -> jnp.ndarray:
-    """Pallas palette pixel pass with automatic kernel-width selection.
-
-    (B, P) flat pixels -> (B, C, 4) sums per valid-order slot.  q_pad is
-    static per config: no cell can have more tie candidates than the
-    largest equal-rank group in the exact distance table.  That worst case
-    (~40: a gray/black cell invalid yet tied across every hue) almost
-    never involves a *populated* cell on real images, so a narrow q=8
-    kernel handles the common case and the full-width kernel is kept as
-    the exact fallback, selected by one scalar lax.cond on the batch's
-    actual candidate counts.  Used by the single-chip batched path, the
-    single-image sharded body (B=1 per shard, sums psum-merged by the
-    caller), and the dp-spatial path (which defers this call to after
-    its per-image vmap so the cond predicate stays scalar — see
-    parallel/spatial.DeferredPalette).
-
-    PHOTOHIVE_PALETTE_KERNEL=cwide selects the C-wide A/B variant
-    (ops/pallas_kernels_cwide.py) instead — identical results, different
-    MXU:VPU balance; measure both on silicon."""
-    from . import pallas_kernels as pk
-
-    c = cfg.num_cells
-    if palette_kernel_variant() == "cwide":
-        from . import pallas_kernels_cwide as pkc
-        opnds = jax.vmap(lambda a: pkc.cwide_tables(a, tables, c))(assign)
-        return pkc.palette_sums_by_k_cwide(hf, sf, vf, *opnds, c, cfg)
-    q_full = max(8, -(-octree_geometry(cfg).max_tie_candidates // 8) * 8)
-    q_small = 8
-
-    def run(q_pad):
-        def body(_):
-            luts = jax.vmap(lambda a: pk.palette_candidate_lut(
-                a, tables, c, q_pad))(assign)
-            return pk.palette_sums_by_k(hf, sf, vf, luts, c, q_pad, cfg)
-        return body
-
-    if q_full == q_small:
-        return run(q_full)(None)
-    # Candidate count only matters for cells that hold pixels.
-    ncand = jnp.sum(assign.allowed, axis=-1)           # (B, C)
-    q_needed = jnp.max(jnp.where(counts > 0, ncand, 0))
-    return jax.lax.cond(q_needed <= q_small, run(q_small), run(q_full),
-                        None)
-
-
-def color_palette_batched_from_rgb(down: jnp.ndarray, cfg: ReportConfig,
-                                   tables: OctreeTables):
-    """Batched quantization from planarized rgb: (B, 3, H, W) f32 ->
-    (batched PaletteResult, (B,) f32 saturation-channel sums).
-
-    The TPU fast path for tile-aligned shapes
-    (pallas_kernels.palette_rgb_eligible): HSV is computed *inside* the
-    rgb-native kernels, so the h/s/v planes never materialize in HBM and
-    the flat path's flatten/pad/layout-copy marshalling (~36 B/px of
-    writes at 1080p, tools/hlo_cost.py) disappears.  Mean saturation's
-    numerator is accumulated by the counts kernel (bf16-split, exact to
-    ~2^-24 relative), so callers divide by H*W instead of re-reading s.
-
-    Counts, cell ids, and the tie-break all share the kernels' one
-    Mosaic lowering of _hsv_rows/_cell_ids_row; agreement with the XLA
-    lowering is gated on hardware by tools/tpu_parity_check.py.
-
-    PHOTOHIVE_PALETTE_KERNEL=bf16 swaps in the bf16-operand/full-sublane
-    restructuring of the same kernels (ops/pallas_kernels_bf16.py) —
-    identical results (every product is against 0/1 one-hots of
-    bf16-exact terms, as the DEFAULT-precision MXU pass already computed
-    them), fewer VPU issues."""
-    from . import pallas_kernels as pk
-
-    if palette_kernel_variant() == "bf16":
-        from . import pallas_kernels_bf16 as pkv
-    else:
-        pkv = pk
-        if down.dtype == jnp.uint8:
-            # only the bf16 kernel family decodes u8 in-kernel; the
-            # candidate-variant rollback converts up front (bit-identical
-            # to the normal ingest conversion).
-            from .colorspace import u8_to_unit_f32
-            down = u8_to_unit_f32(down)
-
-    b, _, hh, ww = down.shape
-    total_pixels = hh * ww
-    c = cfg.num_cells
-    counts, s_sum = pkv.cell_counts_s_from_rgb(down, cfg)
-    sal = jax.vmap(lambda x: saliency_f32(x, tables.s_v_f32, cfg))(counts)
-    order = saliency_argsort(sal, True)
-    assign = jax.vmap(
-        lambda cnt, o: parent_assignment_from_order(
-            cnt, o, total_pixels, cfg, tables))(counts, order)
-
-    q_full = max(8, -(-octree_geometry(cfg).max_tie_candidates // 8) * 8)
-    q_small = 8
-
-    def run(q_pad):
-        def body(_):
-            luts = jax.vmap(lambda a: pk.palette_candidate_lut(
-                a, tables, c, q_pad))(assign)
-            return pkv.palette_sums_by_k_rgb(down, luts, c, q_pad, cfg)
-        return body
-
-    def run_q1(_):
-        # No populated cell tied: parent is a pure cell lookup, sums
-        # accumulate by cell (single one-hot, ~3.4x less MXU work) and
-        # are remapped to slots outside the kernel.
-        return pkv.palette_sums_by_k_rgb_q1(down, assign, tables, c, cfg)
-
-    # Tier switch on the batch's actual tie structure (the XLA
-    # counterpart is palette_q_tiers): candidate count only matters for
-    # cells that hold pixels.
-    ncand = jnp.sum(assign.allowed, axis=-1)               # (B, C)
-    q_needed = jnp.max(jnp.where(counts > 0, ncand, 0))
-    if q_full == q_small:
-        sums_by_k = jax.lax.cond(q_needed <= 1, run_q1, run(q_full), None)
-    else:
-        idx = ((q_needed > 1).astype(jnp.int32)
-               + (q_needed > q_small).astype(jnp.int32))
-        sums_by_k = jax.lax.switch(idx, [run_q1, run(q_small),
-                                         run(q_full)], None)
-    palette = jax.vmap(
-        lambda sk, a: palette_finalize_by_k(sk, a, total_pixels, tables)
-    )(sums_by_k, assign)
-    return palette, s_sum
-
-
-def use_rgb_palette_path(use_pallas: bool, hh: int, ww: int) -> bool:
-    """Route to color_palette_batched_from_rgb?  Pallas on, tile-aligned
-    shape, and an rgb-capable kernel variant ('candidate' or 'bf16'; the
-    cwide A/B variant only has a flat formulation)."""
-    if not use_pallas or palette_kernel_variant() not in ("candidate",
-                                                          "bf16"):
-        return False
-    from . import pallas_kernels as pk
-    return pk.palette_rgb_eligible(hh, ww)
-
-
 def color_palette_batched(h: jnp.ndarray, s: jnp.ndarray, v: jnp.ndarray,
-                          cfg: ReportConfig, tables: OctreeTables,
-                          use_pallas: bool = False) -> PaletteResult:
-    """Batched quantization: (B, H, W) HSV planes -> batched PaletteResult.
-
-    With ``use_pallas`` (the TPU fast path) the cell histogram, saliency
-    sort, and per-pixel palette pass run as Pallas kernels
-    (ops/pallas_kernels.py); otherwise the vmapped XLA reference path is
-    used (CPU, parity tests)."""
+                          cfg: ReportConfig, tables: OctreeTables)\
+        -> PaletteResult:
+    """Batched quantization: (B, H, W) HSV planes -> batched PaletteResult."""
     total_pixels = int(np.prod(h.shape[1:]))
     b = h.shape[0]
     c = cfg.num_cells
-    if use_pallas:
-        # The whole Pallas path — histogram, per-pixel parent resolution,
-        # palette sums — computes cell ids in-kernel via ONE lowering
-        # (_cell_ids_row), never through XLA assign_cells; a boundary
-        # pixel therefore cannot desync counts vs sums, and the (B, P)
-        # int32 cells array never touches HBM.
-        from . import pallas_kernels as pk
-        hf = h.reshape(b, -1)
-        sf = s.reshape(b, -1)
-        vf = v.reshape(b, -1)
-        counts = pk.cell_counts_from_hsv(hf, sf, vf, cfg)
-        sal = jax.vmap(lambda x: saliency_f32(x, tables.s_v_f32, cfg))(counts)
-        order = saliency_argsort(sal, True)
-        assign = jax.vmap(
-            lambda cnt, o: parent_assignment_from_order(
-                cnt, o, total_pixels, cfg, tables))(counts, order)
-        sums_by_k = palette_sums_by_k_auto(hf, sf, vf, assign, counts, cfg,
-                                           tables)
-        return jax.vmap(
-            lambda sk, a: palette_finalize_by_k(sk, a, total_pixels, tables)
-        )(sums_by_k, assign)
     cells = jax.vmap(lambda a, bb, cc: assign_cells(a, bb, cc, cfg))(h, s, v)
     cells = cells.reshape(b, -1)
     counts = jax.vmap(lambda x: cell_counts(x, c))(cells)
@@ -647,14 +408,30 @@ def color_palette_batched(h: jnp.ndarray, s: jnp.ndarray, v: jnp.ndarray,
     )(sums, assign)
 
 
+def _q_full(cfg: ReportConfig) -> int:
+    """The config's static worst-case candidate width, a multiple of 8."""
+    return max(8, -(-octree_geometry(cfg).max_tie_candidates // 8) * 8)
+
+
+def palette_tier(assign: ParentAssignment, counts: jnp.ndarray,
+                 cfg: ReportConfig) -> jnp.ndarray:
+    """The tier palette_q_tiers takes: 0 (q=1: no populated cell is tied),
+    1 (q=8) or 2 (q_full), from the most tie candidates any populated
+    cell has across everything passed in (one image, or a batch with a
+    leading axis)."""
+    ncand = jnp.sum(assign.allowed, axis=-1)
+    q_needed = jnp.max(jnp.where(counts > 0, ncand, 0))
+    return ((q_needed > 1).astype(jnp.int32)
+            + (q_needed > min(8, _q_full(cfg))).astype(jnp.int32))
+
+
 def palette_q_tiers(h: jnp.ndarray, s: jnp.ndarray, v: jnp.ndarray,
                     cells: jnp.ndarray, assign: ParentAssignment,
                     counts: jnp.ndarray, cfg: ReportConfig,
                     tables: OctreeTables) -> jnp.ndarray:
-    """Batched XLA pixel pass with the scalar q=1/8/full width switch.
+    """Batched pixel pass with the scalar q=1/8/full width switch.
 
-    The XLA counterpart of palette_sums_by_k_auto's q8/q40 cond, one
-    tier lower: q=1 when no populated cell is tied (most real photos —
+    q=1 when no populated cell is tied (most real photos —
     the pass is a pure per-cell parent lookup, zero distance math), q=8
     for the typical tied case (~q_full/8 x less distance + gather work
     than the static worst case), q_full otherwise.  Identical results on
@@ -666,7 +443,7 @@ def palette_q_tiers(h: jnp.ndarray, s: jnp.ndarray, v: jnp.ndarray,
     tier; the dp-spatial body defers to after its vmap for exactly this
     reason, parallel/spatial.DeferredPalette).  Returns (B, C, 4) local
     sums; sharded callers psum them."""
-    q_full = max(8, -(-octree_geometry(cfg).max_tie_candidates // 8) * 8)
+    q_full = _q_full(cfg)
 
     def run(qp):
         def body(_):
@@ -676,9 +453,5 @@ def palette_q_tiers(h: jnp.ndarray, s: jnp.ndarray, v: jnp.ndarray,
             )(h, s, v, cells, assign)
         return body
 
-    ncand = jnp.sum(assign.allowed, axis=-1)                 # (B, C)
-    q_needed = jnp.max(jnp.where(counts > 0, ncand, 0))
-    idx = ((q_needed > 1).astype(jnp.int32)
-           + (q_needed > min(8, q_full)).astype(jnp.int32))
-    return jax.lax.switch(idx, [run(1), run(min(8, q_full)),
-                                run(q_full)], None)
+    return jax.lax.switch(palette_tier(assign, counts, cfg),
+                          [run(1), run(min(8, q_full)), run(q_full)], None)

@@ -4,7 +4,7 @@ reference: src/filtering.c:151-183 — for each crop box, crop the grayscale
 image, run the zero-padded 3x3 Laplacian over the *crop*, and report
 variance(response)/mean(response) ("scale-invariant" sharpness).
 
-TPU-native formulation: instead of dynamic-shaped crops (which break XLA's
+Static-shape formulation: instead of dynamic-shaped crops (which break XLA's
 static-shape compilation), each box is handled as a masked full-image pass:
 zero the image outside the box, run the Laplacian everywhere, and reduce with
 the box mask.  Because the crop is zeroed outside its bounds, the stencil at
@@ -27,24 +27,6 @@ from .filtering import laplacian_3x3
 # ~1e-6 absolute f32 cancellation noise the per-pixel mean-subtracted pass
 # does not have.  Shared with parallel/spatial._sharded_sharpness.
 TINY_BOX_PX = 4
-
-
-def _use_pallas_sharpness(h: int, w: int) -> bool:
-    """Route the batched fast path through the masked-tile Pallas kernel?
-    TPU + tile-aligned shape only; PHOTOHIVE_SHARP_PALLAS=0 rolls back.
-    Read at trace time — models/batch._kernel_variant carries it in the
-    compiled-program cache keys."""
-    import os
-
-    if os.environ.get("PHOTOHIVE_SHARP_PALLAS", "1") != "1":
-        return False
-    import jax
-
-    if jax.default_backend() != "tpu":
-        return False
-    from . import pallas_sharpness as psp
-
-    return psp.eligible(h, w)
 
 
 def _one_box_sharpness(pgm: jnp.ndarray, box: jnp.ndarray,
@@ -192,22 +174,6 @@ def variance_sharpness_batched(pgm: jnp.ndarray, boxes: jnp.ndarray,
     than TINY_BOX_PX in either dimension (cancellation, see above)."""
     bsz, h, w = pgm.shape
 
-    def fast_pallas(_):
-        # Masked-crop Pallas kernel (ops/pallas_sharpness): exact
-        # crop-then-filter semantics per box with per-tile box skipping;
-        # nothing materialized in HBM.  Invalid slots are zeroed so stale
-        # box coords can't waste tiles.
-        from . import pallas_sharpness as psp
-
-        s1, s2 = psp.sharpness_sums(
-            pgm, jnp.where(boxes_valid[..., None], boxes, 0))
-        t, b = boxes[..., 0], boxes[..., 1]
-        l, r = boxes[..., 2], boxes[..., 3]
-        n = jnp.maximum((b - t) * (r - l), 1).astype(pgm.dtype)
-        mean = s1 / n
-        var = s2 / n - mean * mean
-        return jnp.where(boxes_valid, var / mean, 0.0)
-
     def fast(_):
         resp = jax.vmap(laplacian_3x3)(pgm)                      # (B, H, W)
         resp2 = resp * resp
@@ -259,10 +225,9 @@ def variance_sharpness_batched(pgm: jnp.ndarray, boxes: jnp.ndarray,
 
     thin = boxes_valid & ((boxes[..., 1] - boxes[..., 0] < TINY_BOX_PX)
                           | (boxes[..., 3] - boxes[..., 2] < TINY_BOX_PX))
-    fast_path = fast_pallas if _use_pallas_sharpness(h, w) else fast
 
     def have_boxes(_):
-        return jax.lax.cond(jnp.any(thin), masked, fast_path, None)
+        return jax.lax.cond(jnp.any(thin), masked, fast, None)
 
     # No valid box in the whole batch -> skip the stage entirely (the
     # reference does: sharpness costs ~3 us without boxes, README.md:69,

@@ -2,9 +2,9 @@
 
 reference: src/image_processing.c:533-553 (brightness = per-channel mean,
 contrast = per-channel stddev via the two-pass mean/variance reducers in
-src/filtering.c:125-148).  XLA lowers jnp reductions to hierarchical tree
-sums on TPU, which keeps f32 accumulation error ~sqrt(log N) instead of
-sqrt(N); parity with the f64 reference is enforced by SNR tests.
+src/filtering.c:125-148).  XLA lowers jnp reductions to blocked tree
+sums, which keeps f32 accumulation error far below a sequential sum's;
+parity with the f64 reference is enforced by SNR tests.
 """
 
 from __future__ import annotations

@@ -6,8 +6,10 @@ The framework scales along two mesh axes (SURVEY.md §2.3):
                   the reference's only scale-coping mechanism was decimation,
                   src/image_processing.c:344).
 
-Collectives (psum/ppermute/all_to_all) ride ICI inside a slice; across hosts
-JAX's runtime routes them over DCN after ``jax.distributed.initialize``.
+Collectives (psum/ppermute/all_to_all) go to NCCL; the GPUs of one host
+are joined all to all by NVLink, so the mesh follows the algorithm alone
+and needs no device ordering.  Across hosts JAX's runtime routes them over
+the network after ``jax.distributed.initialize``.
 """
 
 from __future__ import annotations

@@ -3,8 +3,7 @@
 Each image's report is independent, so the batch axis partitions trivially —
 no cross-image collectives; the win is pure throughput.  The body runs under
 ``jax.shard_map`` so each shard executes the full batched pipeline on its
-local slice, which keeps the Pallas fast path usable per shard (a GSPMD
-``pallas_call`` would otherwise have no batch-partitioning rule).  Mixed
+local slice, with the palette tier switch decided per shard.  Mixed
 resolutions are handled by the bucketing layer (models/batch.py), one
 compiled executable per bucket shape.
 """
@@ -35,8 +34,7 @@ def _dp_shard_map(mesh: Mesh, body):
 
 @functools.lru_cache(maxsize=16)
 def data_parallel_report(height: int, width: int, cfg: ReportConfig,
-                         mesh: Mesh, use_pallas: bool = False,
-                         variant: str = ""):
+                         mesh: Mesh):
     """Compiled batch-report step with the batch dim sharded over ``data``.
 
     Returns (fn, tables); fn(batch_rgb, boxes, valid, tables) -> ReportData
@@ -48,15 +46,14 @@ def data_parallel_report(height: int, width: int, cfg: ReportConfig,
     tables = ReportTables.build(height, width, cfg)
 
     def body(rgb, boxes, valid, tbl):
-        return full_report_batched(rgb, boxes, valid, tbl, cfg, use_pallas)
+        return full_report_batched(rgb, boxes, valid, tbl, cfg)
 
     return jax.jit(_dp_shard_map(mesh, body)), tables
 
 
 @functools.lru_cache(maxsize=16)
 def data_parallel_report_u8(height: int, width: int, cfg: ReportConfig,
-                            mesh: Mesh, use_pallas: bool = False,
-                            variant: str = ""):
+                            mesh: Mesh):
     """uint8 variant: fn(u8 (B,H,W,3), boxes, valid, tables) -> ReportData.
 
     The host->device transfer moves 4x less data than f32 and the
@@ -68,10 +65,8 @@ def data_parallel_report_u8(height: int, width: int, cfg: ReportConfig,
 
     def body(u8, boxes, valid, tbl):
         from ..ops.colorspace import u8_to_unit_f32
-        u8p = jnp.moveaxis(u8, -1, 1)
-        rgb = u8_to_unit_f32(u8p)
-        return full_report_batched(rgb, boxes, valid, tbl, cfg, use_pallas,
-                                   rgb_u8=u8p)
+        rgb = u8_to_unit_f32(jnp.moveaxis(u8, -1, 1))
+        return full_report_batched(rgb, boxes, valid, tbl, cfg)
 
     return jax.jit(_dp_shard_map(mesh, body)), tables
 

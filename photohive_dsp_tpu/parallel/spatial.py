@@ -47,11 +47,10 @@ class ShardedPolarTables(NamedTuple):
     pad_index: np.ndarray    # (n_shards, A*R, Lmax) int32, sentinel = H*Wc
     #                          ((n_shards, 1, 1) dummy when flat_route)
     flat_ids: np.ndarray     # (n_shards, H*Wc) int32, sentinel = A*R
-    #                          (the Pallas one-hot GEMM path's layout)
     counts: np.ndarray       # (A*R,) int32 global bin counts
     wc: int                  # columns per shard after the all_to_all
     flat_route: bool         # True: gather table too big (see ops/blur.py
-    #                          memory audit); XLA path uses flat_ids
+    #                          memory audit); bins reduce via flat_ids
 
 
 @functools.lru_cache(maxsize=16)
@@ -73,8 +72,7 @@ def sharded_polar_tables(height: int, width: int, num_angle_bins: int,
     tables = []
     # Per-shard flat bin ids in the local (height, wc) layout; padded
     # columns past the true spectrum get the out-of-range sentinel bin id
-    # (polar_bin_sums' one-hot never matches it, and its own padding slice
-    # drops any row >= num_bins).
+    # (the flat-ids one-hot never matches it).
     ids_flat = np.full((n_shards, height * wc), num_bins, dtype=np.int32)
     for k in range(n_shards):
         c0, c1 = k * wc, min((k + 1) * wc, wf)
@@ -320,15 +318,13 @@ def _sharded_blur_bins(pgm_local: jnp.ndarray, dc: jnp.ndarray,
                        flat_ids_local: jnp.ndarray,
                        counts_global: jnp.ndarray, wc: int, height: int,
                        width: int, cfg: ReportConfig, axis_name: str,
-                       use_pallas: bool = False,
                        polar_flat: bool = False) -> jnp.ndarray:
     """Distributed 2-D rFFT -> log normalize -> polar bins, psum-merged.
 
-    With ``use_pallas`` the local polar partial sums run through the
-    one-hot MXU GEMM kernel (ops/pallas_kernels.polar_bin_sums) against
-    this shard's bin-id table; otherwise the XLA static gather — unless
-    ``polar_flat`` (gather table over the memory budget; ops/blur.py
-    audit), which uses the chunked flat-ids one-hot contraction."""
+    The local polar partial sums are the static gather against this
+    shard's table, or with ``polar_flat`` (gather table over the memory
+    budget; ops/blur.py audit) the chunked flat-ids one-hot
+    contraction."""
     n = jax.lax.psum(1, axis_name)
     wf = width // 2 + 1
     x = pgm_local - dc
@@ -344,11 +340,7 @@ def _sharded_blur_bins(pgm_local: jnp.ndarray, dc: jnp.ndarray,
     mx = jax.lax.pmax(jnp.max(mag), axis_name)
     norm = fftops.normalize_fft(mag, mx=mx)
     num_bins = cfg.angle_partitions * cfg.radius_partitions
-    if use_pallas:
-        from ..ops import pallas_kernels as pk
-        sums = pk.polar_bin_sums(norm.reshape(1, -1), flat_ids_local,
-                                 num_bins)[0]            # (A*R,)
-    elif polar_flat:
+    if polar_flat:
         from ..ops.blur import polar_bin_sums_flat_xla
         sums = polar_bin_sums_flat_xla(norm.reshape(-1), flat_ids_local,
                                        num_bins)         # (A*R,)
@@ -381,19 +373,14 @@ class DeferredPalette(NamedTuple):
     vmap lets one batched call carry the whole local batch with a
     scalar max-over-batch predicate — the same design as the
     single-chip batched fast path (quantize.color_palette_batched).
-    Used by BOTH dp-spatial paths: Pallas (kernel q8/q40 cond) and XLA
-    (q=1/8/full tier switch)."""
+    """
 
-    h: jnp.ndarray        # (P_local,) hue; -1 sentinel on padded pixels
-    #                       (Pallas), raw hue (XLA — cells carry the
-    #                       sentinel there)
+    h: jnp.ndarray        # (P_local,) hue
     s: jnp.ndarray        # (P_local,)
     v: jnp.ndarray        # (P_local,)
     assign: quantize.ParentAssignment   # replicated across the axis
     counts: jnp.ndarray   # (C,) psum-merged global cell counts
     cells: jnp.ndarray    # (P_local,) int32 w/ sentinel C on padded px
-    #                       (XLA defer only; None on the Pallas defer,
-    #                       whose kernels re-derive cells in-kernel)
 
 
 def spatial_report_body(rgb_local: jnp.ndarray, down_local: jnp.ndarray,
@@ -404,7 +391,6 @@ def spatial_report_body(rgb_local: jnp.ndarray, down_local: jnp.ndarray,
                         octree: OctreeTables, counts_global: jnp.ndarray,
                         wc: int, height: int, width: int, cfg: ReportConfig,
                         axis_name: str = SPATIAL_AXIS,
-                        use_pallas: bool = False,
                         any_tiny=None,
                         any_valid=None,
                         defer_palette: bool = False,
@@ -420,13 +406,7 @@ def spatial_report_body(rgb_local: jnp.ndarray, down_local: jnp.ndarray,
                 result.  All outputs are fully reduced (identical on every
                 shard of the axis).
 
-    With ``use_pallas`` (TPU) the histogram-shaped stages run the same
-    Pallas kernels as the single-chip fast path: the margin-sort kernel on
-    the replicated saliencies, the candidate-LUT palette pixel pass on
-    each shard's local pixels (partial sums psum-merged), and the one-hot
-    MXU polar binning on each shard's local spectrum.
-
-    With ``defer_palette`` (either path) the palette pixel pass and
+    With ``defer_palette`` the palette pixel pass and
     finalize are NOT run; the return is ``(ReportData-with-zeroed-palette,
     DeferredPalette)`` and the caller runs the batched pass + psum +
     finalize itself (build_dp_spatial_report does, outside its vmap).
@@ -467,72 +447,38 @@ def spatial_report_body(rgb_local: jnp.ndarray, down_local: jnp.ndarray,
 
     # palette: psum histogram -> replicated selection -> psum pixel sums
     cells = quantize.assign_cells(h, s, v, cfg).reshape(-1)
-    h_pal = h
     if d_padded:
         dv = (idx * d_local_h + jnp.arange(d_local_h)) < d_h     # (d_lh,)
         dv_pix = jnp.broadcast_to(dv[:, None],
                                   (d_local_h, down_local.shape[2]))
-        # Out-of-image pixels are dropped exactly by both paths: sentinel
-        # cell id C for the XLA compare-reduce histogram / pixel pass, hue
-        # sentinel -1 for the Pallas kernels (which recompute cell ids
-        # in-kernel and take in_img = hue >= 0).
+        # Out-of-image pixels get the sentinel cell id C, which the
+        # histogram and the pixel pass drop exactly.
         cells = jnp.where(dv_pix.reshape(-1), cells,
                           jnp.int32(cfg.num_cells))
-        h_pal = jnp.where(dv_pix, h, jnp.float32(-1.0))
         s_bar = jax.lax.psum(jnp.sum(s * dv_pix), axis_name) / d_total
     else:
         s_bar = jax.lax.psum(jnp.sum(s), axis_name) / d_total
-    if use_pallas:
-        from ..ops import pallas_kernels as pk
-        # Counts from the hsv Pallas kernel: the identical in-kernel cell
-        # assignment the palette pixel pass uses (one lowering for counts
-        # AND sums; XLA assign_cells above dead-code-eliminates here).
-        counts = jax.lax.psum(
-            pk.cell_counts_from_hsv(h_pal.reshape(1, -1),
-                                    s.reshape(1, -1), v.reshape(1, -1),
-                                    cfg)[0], axis_name)
-        sal = quantize.saliency_f32(counts, octree.s_v_f32, cfg)
-        order = quantize.saliency_argsort(sal[None], True)[0]
-        assign = quantize.parent_assignment_from_order(counts, order,
-                                                       d_total, cfg, octree)
-        if defer_palette:
-            deferred = DeferredPalette(h=h_pal.reshape(-1),
-                                       s=s.reshape(-1), v=v.reshape(-1),
-                                       assign=assign, counts=counts,
-                                       cells=None)
-            palette = _dummy_palette(cfg)
-        else:
-            sums_k = quantize.palette_sums_by_k_auto(
-                h_pal.reshape(1, -1), s.reshape(1, -1), v.reshape(1, -1),
-                jax.tree.map(lambda x: x[None], assign),
-                counts[None], cfg, octree)[0]
-            sums_k = jax.lax.psum(sums_k, axis_name)
-            palette = quantize.palette_finalize_by_k(sums_k, assign,
-                                                     d_total, octree)
+    counts = jax.lax.psum(quantize.cell_counts(cells, cfg.num_cells),
+                          axis_name)
+    assign = quantize.parent_assignment(counts, d_total, cfg, octree)
+    if defer_palette:
+        deferred = DeferredPalette(h=h.reshape(-1), s=s.reshape(-1),
+                                   v=v.reshape(-1), assign=assign,
+                                   counts=counts, cells=cells)
+        palette = _dummy_palette(cfg)
     else:
-        counts = jax.lax.psum(quantize.cell_counts(cells, cfg.num_cells),
-                              axis_name)
-        assign = quantize.parent_assignment(counts, d_total, cfg, octree)
-        if defer_palette:
-            deferred = DeferredPalette(h=h.reshape(-1), s=s.reshape(-1),
-                                       v=v.reshape(-1), assign=assign,
-                                       counts=counts, cells=cells)
-            palette = _dummy_palette(cfg)
-        else:
-            # Scalar tier switch (q=1/8/full, quantize.palette_q_tiers):
-            # legal here because this branch is unbatched (the vmapped
-            # dp caller defers instead — a batched predicate would
-            # execute every tier).  counts/assign are replicated across
-            # the axis, so every shard picks the same tier and the psum
-            # stays matched.
-            sums = jax.lax.psum(
-                quantize.palette_q_tiers(
-                    h.reshape(1, -1), s.reshape(1, -1), v.reshape(1, -1),
-                    cells[None], jax.tree.map(lambda x: x[None], assign),
-                    counts[None], cfg, octree)[0],
-                axis_name)
-            palette = quantize.palette_finalize(sums, assign, d_total,
-                                                octree)
+        # Scalar tier switch (q=1/8/full, quantize.palette_q_tiers):
+        # legal here because this branch is unbatched (the vmapped dp
+        # caller defers instead — a batched predicate would execute every
+        # tier).  counts/assign are replicated across the axis, so every
+        # shard picks the same tier and the psum stays matched.
+        sums = jax.lax.psum(
+            quantize.palette_q_tiers(
+                h.reshape(1, -1), s.reshape(1, -1), v.reshape(1, -1),
+                cells[None], jax.tree.map(lambda x: x[None], assign),
+                counts[None], cfg, octree)[0],
+            axis_name)
+        palette = quantize.palette_finalize(sums, assign, d_total, octree)
 
     sharp = _sharded_sharpness(pgm, boxes, boxes_valid, row_offset,
                                axis_name, any_tiny, any_valid)
@@ -540,7 +486,7 @@ def spatial_report_body(rgb_local: jnp.ndarray, down_local: jnp.ndarray,
     dc = (stats[0] + stats[1] + stats[2]) / 3.0
     bins = _sharded_blur_bins(pgm, dc, pad_index_local, flat_ids_local,
                               counts_global, wc, height, width, cfg,
-                              axis_name, use_pallas, polar_flat)
+                              axis_name, polar_flat)
     angles, mags = vectorize_blur_profile(bins, cfg)
 
     data = ReportData(
@@ -557,8 +503,7 @@ def spatial_report_body(rgb_local: jnp.ndarray, down_local: jnp.ndarray,
 
 @functools.lru_cache(maxsize=8)
 def build_spatial_report(mesh: Mesh, height: int, width: int,
-                         cfg: ReportConfig, use_pallas: bool = False,
-                         variant: str = ""):
+                         cfg: ReportConfig):
     """Compiled spatially-sharded single-image report over mesh['spatial'].
 
     Returns fn(rgb (3,H,W), boxes, valid) -> ReportData (replicated).
@@ -580,7 +525,7 @@ def build_spatial_report(mesh: Mesh, height: int, width: int,
         return spatial_report_body(rgb_loc, down_loc, boxes, valid,
                                    pad_loc[0], ids_loc[0], octree_t, counts,
                                    tabs.wc, height, width, cfg,
-                                   SPATIAL_AXIS, use_pallas,
+                                   SPATIAL_AXIS,
                                    polar_flat=tabs.flat_route)
 
     shard_fn = jax.shard_map(
@@ -609,8 +554,7 @@ def build_spatial_report(mesh: Mesh, height: int, width: int,
 
 @functools.lru_cache(maxsize=8)
 def build_dp_spatial_report(mesh: Mesh, batch: int, height: int,
-                            width: int, cfg: ReportConfig,
-                            use_pallas: bool = False, variant: str = ""):
+                            width: int, cfg: ReportConfig):
     """Full multi-chip step: batch over ``data`` x rows over ``spatial``.
 
     Returns fn(rgb (B,3,H,W), boxes (B,10,4), valid (B,10)) -> ReportData
@@ -648,33 +592,23 @@ def build_dp_spatial_report(mesh: Mesh, batch: int, height: int,
             # scalar predicate, which this vmap would batch (executing
             # every branch per image); deferring runs ONE batched pass
             # below with a max-over-batch scalar predicate — the
-            # single-chip batched design — on BOTH the Pallas (q8/q40
-            # kernel cond) and XLA (q=1/8/full tier switch) paths.
+            # single-chip batched design.
             return spatial_report_body(rgb_i, down_i, boxes_i, valid_i,
                                        pad_loc[0], ids_loc[0], octree_t,
                                        counts, tabs.wc, height, width, cfg,
-                                       SPATIAL_AXIS, use_pallas, any_tiny,
-                                       any_valid,
+                                       SPATIAL_AXIS, any_tiny, any_valid,
                                        defer_palette=True,
                                        polar_flat=tabs.flat_route)
         data, pal = jax.vmap(one)(rgb_loc, down_loc, boxes, valid)
         d_w = width // rate if rate > 1 else width
         d_total = d_h * d_w
-        if use_pallas:
-            sums_k = quantize.palette_sums_by_k_auto(
-                pal.h, pal.s, pal.v, pal.assign, pal.counts, cfg, octree_t)
-            sums_k = jax.lax.psum(sums_k, SPATIAL_AXIS)
-            palette = jax.vmap(
-                lambda sk, a: quantize.palette_finalize_by_k(
-                    sk, a, d_total, octree_t))(sums_k, pal.assign)
-        else:
-            sums = quantize.palette_q_tiers(
-                pal.h, pal.s, pal.v, pal.cells, pal.assign, pal.counts,
-                cfg, octree_t)
-            sums = jax.lax.psum(sums, SPATIAL_AXIS)
-            palette = jax.vmap(
-                lambda sm, a: quantize.palette_finalize(
-                    sm, a, d_total, octree_t))(sums, pal.assign)
+        sums = quantize.palette_q_tiers(
+            pal.h, pal.s, pal.v, pal.cells, pal.assign, pal.counts,
+            cfg, octree_t)
+        sums = jax.lax.psum(sums, SPATIAL_AXIS)
+        palette = jax.vmap(
+            lambda sm, a: quantize.palette_finalize(
+                sm, a, d_total, octree_t))(sums, pal.assign)
         return data._replace(palette_hsv=palette.hsv,
                              palette_pct=palette.percentages,
                              palette_n=palette.n_valid,

@@ -11,7 +11,7 @@ setup(
     name="photohive_dsp_tpu",
     version="0.1.0",
     description=(
-        "TPU-native image-DSP feature extraction: PhotoHive photo reports "
+        "Image-DSP feature extraction: PhotoHive photo reports "
         "(brightness/contrast, saturation, HSV palette, crop sharpness, "
         "FFT blur profile) as a batched, mesh-shardable JAX pipeline"
     ),

@@ -37,11 +37,12 @@ MAX_SV = 0.999999
 # colorspace + stats
 # ---------------------------------------------------------------------------
 
-def rgb2hsv(r, g, b):
-    """src/image_processing.c:372-417 (vectorized, float64)."""
-    r = np.asarray(r, np.float64)
-    g = np.asarray(g, np.float64)
-    b = np.asarray(b, np.float64)
+def rgb2hsv(r, g, b, dtype=np.float64):
+    """src/image_processing.c:372-417 (vectorized, float64; with
+    ``dtype=np.float32`` every step rounds to float32 instead)."""
+    r = np.asarray(r, dtype)
+    g = np.asarray(g, dtype)
+    b = np.asarray(b, dtype)
     mx = np.maximum(np.maximum(r, g), b)
     mn = np.minimum(np.minimum(r, g), b)
     delta = mx - mn
@@ -398,7 +399,7 @@ class GoldenOctree:
                 # (:436-446), so once a tied parent's tail node fills,
                 # every further pixel orphans its predecessor and only the
                 # LAST overflow pixel reaches calculate_avg_hsv.  We (and
-                # the TPU build) keep every pixel's contribution.
+                # the JAX build) keep every pixel's contribution.
                 for idx in members:
                     best, bestd = None, np.inf
                     for p in tied:

@@ -1,9 +1,5 @@
-"""The batched (XLA) pipeline must agree with the single-image pipeline.
-
-The Pallas variants of these stages are validated on TPU hardware by
-tools/tpu_parity_check.py (Pallas TPU kernels can't run on the CPU CI
-backend); here the batched XLA compositions are pinned against the
-per-image reference path."""
+"""The batched pipeline must agree with the single-image pipeline: the
+batched compositions are pinned against the per-image reference path."""
 
 import numpy as np
 
@@ -28,7 +24,7 @@ def test_batched_matches_single():
 
     tables = ReportTables.build(360, 480, cfg)
     batched = jax.jit(
-        lambda r, b, v, t: full_report_batched(r, b, v, t, cfg, False))(
+        lambda r, b, v, t: full_report_batched(r, b, v, t, cfg))(
         jnp.asarray(imgs, jnp.float32), jnp.asarray(boxes),
         jnp.asarray(valid), tables)
 

@@ -105,7 +105,7 @@ def test_vectorize_detects_motion_blur():
 
 
 def test_polar_flat_xla_matches_gather():
-    """The flat-ids chunked one-hot reduction (large-shape XLA route) must
+    """The flat-ids chunked one-hot reduction (large-shape route) must
     match the padded-gather path to float32 rounding, and the memory
     routing must drop the gather table above the budget."""
     h, w = 480, 640
@@ -134,62 +134,34 @@ def test_polar_flat_xla_matches_gather():
 
 
 def test_polar_table_memory_routing():
-    """4K-class shapes exceed the TPU 24 MB budget -> flat route on both
-    the single-chip and sharded tables (VERDICT r2 item 6: the gather
-    table is ~3.6x the spectrum, 238 MB at 8K).  Budgets passed
-    explicitly: the platform default is backend-aware (24 MB in TPU HBM,
-    256 MB on hosts, where gather outruns the one-hot contraction)."""
+    """Shapes whose gather table exceeds the budget take the flat route on
+    both the single-chip and sharded tables (the gather table is ~3.6x the
+    spectrum, 238 MB at 8K).  A 24 MB budget is passed explicitly: it
+    puts 4K over the line and 1080p under it."""
     from photohive_dsp_tpu.parallel.spatial import sharded_polar_tables
-    tpu_budget = 24_000_000
+    budget = 24_000_000
     t4k = blur.PolarTables.for_shape(2160, 3840, CFG,
-                                     max_table_bytes=tpu_budget)
+                                     max_table_bytes=budget)
     assert t4k.pad_index is None
     t1080 = blur.PolarTables.for_shape(1080, 1920, CFG,
-                                       max_table_bytes=tpu_budget)
+                                       max_table_bytes=budget)
     assert t1080.pad_index is not None
     st = sharded_polar_tables(2160, 3840, CFG.angle_partitions,
                               CFG.radius_partitions, 2,
-                              max_table_bytes=tpu_budget)
+                              max_table_bytes=budget)
     assert st.flat_route and st.pad_index.shape == (2, 1, 1)
     st_small = sharded_polar_tables(480, 640, CFG.angle_partitions,
                                     CFG.radius_partitions, 2,
-                                    max_table_bytes=tpu_budget)
+                                    max_table_bytes=budget)
     assert not st_small.flat_route
 
 
 def test_polar_table_budget_env_override(monkeypatch):
-    """PHOTOHIVE_POLAR_TABLE_MB overrides the platform default budget."""
+    """PHOTOHIVE_POLAR_TABLE_MB overrides the 256 MB default budget."""
     monkeypatch.setenv("PHOTOHIVE_POLAR_TABLE_MB", "0.05")
     assert blur._pad_table_budget() == 50_000
     t = blur.PolarTables.for_shape(480, 640, CFG)
     assert t.pad_index is None  # 0.05 MB forces the flat route
     monkeypatch.delenv("PHOTOHIVE_POLAR_TABLE_MB")
-    # host default (CPU test env) keeps the table at this shape
+    assert blur._pad_table_budget() == 256_000_000
     assert blur.PolarTables.for_shape(480, 640, CFG).pad_index is not None
-
-
-def test_polar_chunk_tables_invariants():
-    """Dictionary tables for the local polar kernel: every pixel's dict
-    entry resolves to its true bin id; sentinels cover padding; chunk
-    count is a multiple of the kernel's 8-chunk group."""
-    from photohive_dsp_tpu.ops.geometry import (polar_chunk_tables,
-                                                polar_geometry)
-
-    geom = polar_geometry(96, 256, 72, 40)
-    num_bins = 72 * 40
-    dict_ids, local_ids = polar_chunk_tables(geom.bin_ids, num_bins)
-    n, k = dict_ids.shape
-    assert n % 8 == 0 and k % 8 == 0
-    local = local_ids.reshape(n, -1)
-    chunk = local.shape[1]
-    p = geom.bin_ids.size
-    resolved = np.take_along_axis(
-        dict_ids, np.minimum(local, k - 1), axis=1)
-    flat = resolved.reshape(-1)[:p]
-    assert np.array_equal(flat, geom.bin_ids)  # real pixels exact
-    # padding pixels resolve to the sentinel pseudo-bin or a no-match slot
-    tail = np.arange(p, n * chunk)
-    tail_local = local.reshape(-1)[tail]
-    tail_ok = (tail_local == k) | (
-        resolved.reshape(-1)[tail] == num_bins)
-    assert tail_ok.all()

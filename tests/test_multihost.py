@@ -4,7 +4,7 @@ Round-1 left `parallel.mesh.initialize_distributed` and the
 ``num_hosts``/``host_id`` corpus sharding as code-complete-but-unexercised.
 This test runs them for real: two OS processes, each its own JAX runtime,
 joined through the distributed coordinator (CPU backend, Gloo
-collectives — the same jax.distributed machinery a TPU pod uses over DCN).
+collectives — the same jax.distributed machinery a GPU cluster uses).
 
 Covers:
   * initialize_distributed wiring (coordinator, num_processes, process_id);

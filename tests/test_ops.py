@@ -158,3 +158,14 @@ def test_variance_sharpness_zero_mean_unguarded():
         jnp.asarray(valid)))
     assert abs(ref[0]) > 1e12                 # golden: astronomically large
     assert np.isinf(ours[0]) or abs(ours[0]) > 1e12
+
+
+def test_u8_to_unit_f32_exact():
+    """The device ingest sequence == correctly rounded x/255.0 for all
+    256 inputs, on this backend's IEEE mul/add (division-free)."""
+    import jax
+
+    x = jnp.asarray(np.arange(256, dtype=np.uint8))
+    got = np.asarray(jax.jit(colorspace.u8_to_unit_f32)(x))
+    want = np.arange(256, dtype=np.float32) / np.float32(255.0)
+    assert np.array_equal(got, want)

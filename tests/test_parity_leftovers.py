@@ -1,8 +1,7 @@
 """Parity sweep for the reference's dev-only / off-path utilities.
 
 Each of these exists in the reference but is unused on its report path;
-they are implemented here for component completeness (VERDICT round-1
-item 10): fft_shift (src/fft_processing.c:111-157), the filtering
+they are implemented here for component completeness: fft_shift (src/fft_processing.c:111-157), the filtering
 alternates sharpness_avg / get_average_sharpness / create_filtered_RGB
 (src/filtering.c:58,110,186), pgm2rgb (src/image_processing.c:515),
 print_full_report (src/utilities.c:229-256), and the jax_debug_nans

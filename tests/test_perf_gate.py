@@ -6,15 +6,14 @@ primary pin here is the *compiled cost analysis* of the fused batched
 program — deterministic for a given jax version, and sensitive to the
 regressions that actually halved throughput during development:
 
-  * a palette/polar GEMM falling off the 1-pass bf16-split onto the
-    6-pass HIGHEST path (~+35% flops);
+  * a contraction taking a multi-pass precision path it does not need
+    (~+35% flops);
   * a stage getting computed twice (e.g. a lost CSE across the
     sharpness/blur shared Laplacian) (~+20-60% flops or bytes);
   * an elementwise stage de-fusing into extra materialized passes
     (+bytes).
 
-Measured on the XLA path (use_pallas=False: Mosaic kernels don't lower on
-CPU) at 2 x 360x480: ~2738 flops/px, ~2299 bytes/px, ~0.50
+Measured on the CPU at 2 x 360x480: ~2738 flops/px, ~2299 bytes/px, ~0.50
 transcendentals/px.  Bounds carry ~25% headroom; if a *deliberate*
 algorithm change moves the cost, update the bounds in the same commit.
 
@@ -44,8 +43,7 @@ WARM_ITER_MAX_S = 3.0  # typical ~0.1-0.3 s; only disasters trip this
 def _compiled():
     cfg = ReportConfig()
     tables = ReportTables.build(H, W, cfg)
-    fn = jax.jit(functools.partial(full_report_batched, cfg=cfg,
-                                   use_pallas=False))
+    fn = jax.jit(functools.partial(full_report_batched, cfg=cfg))
     rgb = jnp.zeros((B, 3, H, W), jnp.float32)
     boxes = jnp.zeros((B, 10, 4), jnp.int32)
     valid = jnp.zeros((B, 10), bool)
@@ -94,7 +92,7 @@ def test_dp_spatial_collective_census():
 
     m = meshlib.make_mesh(data=2, spatial=2, devices=jax.devices()[:4])
     cfg = ReportConfig()
-    fn = build_dp_spatial_report(m, 4, 128, 96, cfg, use_pallas=False)
+    fn = build_dp_spatial_report(m, 4, 128, 96, cfg)
     rgb = jnp.zeros((4, 3, 128, 96), jnp.float32)
     boxes = jnp.zeros((4, 10, 4), jnp.int32)
     valid = jnp.zeros((4, 10), bool)

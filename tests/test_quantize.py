@@ -3,6 +3,7 @@
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 
 from photohive_dsp_tpu.config import ReportConfig
@@ -133,19 +134,18 @@ def test_tied_cells_per_pixel_branch():
 
 
 def test_saliency_argsort_big_c_routes_to_fori_loop():
-    """Large-C configs (h_partitions=360 -> C=2164) must route around the
-    unrolled Pallas sort kernel (straight-line Mosaic compile would explode)
-    and still sort exactly.  Python insertion-sort emulation is the spec."""
+    """Large-C configs (h_partitions=360 -> C=2164) sort exactly through
+    the fori_loop margin sort: 2163 dependent steps, each reproducing the
+    reference's truncating comparator.  Python insertion-sort emulation
+    is the spec."""
     big = quantize.ReportConfig(h_partitions=360)
     big.validate()
     c = big.num_cells
-    assert c > quantize._PALLAS_SORT_MAX_C
+    assert c == 2164
     rng = np.random.default_rng(11)
     sal = (rng.integers(0, 60, c) + rng.random(c) * 0.8).astype(np.float32)
-    # use_pallas=True must still take the XLA path at this C (no Mosaic
-    # lowering exists on CPU, so reaching the kernel would raise).
-    ours = np.asarray(quantize.saliency_argsort(
-        jnp.asarray(sal)[None], True))[0]
+    ours = np.asarray(jax.vmap(quantize.margin_insertion_argsort)(
+        jnp.asarray(sal)[None]))[0]
     order = list(range(c))
     for i in range(1, c):
         j = i
@@ -242,7 +242,7 @@ def test_palette_tiers_nondefault_configs(kw):
                      rng.random((3, 72, 96)).astype(np.float32)])
     h, s, v = jax.vmap(lambda x: rgb_to_hsv(x[0], x[1], x[2]))(
         jnp.asarray(imgs, jnp.float32))
-    tiered = quantize.color_palette_batched(h, s, v, cfg, tables, False)
+    tiered = quantize.color_palette_batched(h, s, v, cfg, tables)
     # Unconditional full-width reference pass (no tier switch).
     cells = jax.vmap(lambda a, b2, c2: quantize.assign_cells(
         a, b2, c2, cfg))(h, s, v).reshape(2, -1)
@@ -273,3 +273,21 @@ def test_huge_c_config_end_to_end():
     assert np.isfinite(pct).all() and abs(pct.sum() - 1.0) < 1e-4
     hsv = np.asarray(rep.color_palette.colors)
     assert np.isfinite(hsv).all()
+
+
+@pytest.mark.parametrize("n_px,n_seg", [(1, 3), (1000, 7), (1 << 16, 113)])
+def test_bucket_sums_match_float64(n_px, n_seg):
+    """The palette's masked-reduction bucket sums equal float64 sums per
+    segment to f32 rounding, count exactly, and drop out-of-range ids."""
+    rng = np.random.default_rng(n_px)
+    vals = np.stack([rng.uniform(0, 360, n_px), rng.uniform(0, 1, n_px),
+                     rng.uniform(0, 1, n_px)], 1).astype(np.float32)
+    seg = rng.integers(0, n_seg + 1, n_px).astype(np.int32)  # n_seg: drop
+    got = np.asarray(jax.jit(quantize._bucket_sums, static_argnums=2)(
+        vals, seg, n_seg))
+    assert got.shape == (n_seg, 4) and got.dtype == np.float32
+    for k in range(n_seg):
+        rows = vals[seg == k].astype(np.float64)
+        assert got[k, 3] == len(rows)
+        np.testing.assert_allclose(got[k, :3], rows.sum(0), rtol=2e-6,
+                                   atol=1e-5)

@@ -4,7 +4,10 @@ The serialized StableHLO module must reproduce the live pipeline's
 report bit-for-bit on the same backend (it is the same program, with
 tables embedded as constants)."""
 
+import json
+
 import numpy as np
+import pytest
 
 import jax
 import jax.numpy as jnp
@@ -27,7 +30,7 @@ def test_export_roundtrip_exact_parity(tmp_path):
     bb = np.broadcast_to(boxes, (2, 10, 4)).copy()
     bv = np.broadcast_to(valid, (2, 10)).copy()
 
-    blob = export_report(360, 480, CFG, batch_size=2, use_pallas=False)
+    blob = export_report(360, 480, CFG, batch_size=2)
     # survives a file round trip (the deployable artifact)
     p = tmp_path / "report_360x480.jaxexport"
     p.write_bytes(blob)
@@ -37,7 +40,7 @@ def test_export_roundtrip_exact_parity(tmp_path):
     tables = ReportTables.build(360, 480, CFG)
     rgb = jnp.moveaxis(jnp.asarray(u8), -1, 1).astype(jnp.float32) / 255.0
     ref = jax.jit(
-        lambda r, b, v: full_report_batched(r, b, v, tables, CFG, False)
+        lambda r, b, v: full_report_batched(r, b, v, tables, CFG)
     )(rgb, jnp.asarray(bb), jnp.asarray(bv))
 
     # The artifact is recompiled by the local XLA on load, so fusion /
@@ -84,8 +87,7 @@ def test_export_dynamic_batch():
                       for s in (1, 4)]).astype(np.uint8)
     u8_2 = np.moveaxis(imgs2, 1, -1)
     u8_3 = np.concatenate([u8_2, u8_2[:1]])
-    blob = export_report(360, 480, CFG, batch_size="dynamic",
-                         use_pallas=False)
+    blob = export_report(360, 480, CFG, batch_size="dynamic")
     fn = load_report(blob)
     for u8 in (u8_2, u8_3):
         b = u8.shape[0]
@@ -113,14 +115,49 @@ def test_export_mesh_dp_artifact():
     bx = np.zeros((8, 10, 4), np.int32)
     vl = np.zeros((8, 10), bool)
     mesh = make_mesh(data=8, spatial=1)
-    blob = export_report(360, 480, CFG, batch_size=8, use_pallas=False,
-                         mesh=mesh)
+    blob = export_report(360, 480, CFG, batch_size=8, mesh=mesh)
     fn = load_report(blob, mesh=make_mesh(data=8, spatial=1))
     out = fn(u8_8, bx, vl)
-    ref_blob = export_report(360, 480, CFG, batch_size=2,
-                             use_pallas=False)
+    ref_blob = export_report(360, 480, CFG, batch_size=2)
     ref = load_report(ref_blob)(u8, bx[:2], vl[:2])
     np.testing.assert_array_equal(np.asarray(out.palette_n)[:2],
                                   np.asarray(ref.palette_n))
     np.testing.assert_array_equal(np.asarray(out.palette_ids)[:2],
                                   np.asarray(ref.palette_ids))
+
+
+def test_artifact_round_trip_without_flatbuffers():
+    """Export and load work where the flatbuffers package (which jax's
+    own Exported.serialize needs) is missing, as on GPU serving hosts."""
+    import os
+    import subprocess
+    import sys
+
+    code = """
+import sys
+sys.modules["flatbuffers"] = None   # any import of it now fails
+import numpy as np
+from photohive_dsp_tpu.serving import export_report, load_report
+fn = load_report(export_report(360, 480, batch_size=1))
+out = fn(np.zeros((1, 360, 480, 3), np.uint8), np.zeros((1, 10, 4), np.int32),
+         np.zeros((1, 10), bool))
+assert np.isfinite(np.asarray(out.rgb_stats)).all()
+print("ok")
+"""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", code], cwd=repo,
+                         env=dict(os.environ, JAX_PLATFORMS="cpu"),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().endswith("ok")
+
+
+@pytest.mark.parametrize("blob", [
+    b"not an artifact",
+    # this module's container, written by another jax version
+    b"photohive-report-export 1\n" + json.dumps(
+        {"jax_version": "0.0.0"}).encode() + b"\n",
+], ids=["foreign", "other_jax"])
+def test_load_rejects_foreign_bytes(blob):
+    with pytest.raises(ValueError, match="export_report"):
+        load_report(blob)

@@ -13,7 +13,7 @@ from photohive_dsp_tpu.parallel import mesh as meshlib
 from photohive_dsp_tpu.parallel.sharding import data_parallel_report
 from photohive_dsp_tpu.parallel.spatial import (build_dp_spatial_report,
                                                 build_spatial_report)
-from .util import run_isolated, snr_db, structured_image
+from .util import snr_db, structured_image
 
 CFG = ph.ReportConfig()
 
@@ -198,236 +198,3 @@ def test_sharded_sharpness_thin_and_edge_boxes():
     # the 1x1 box is exactly 0 and the rest are f32-rounding tight.
     np.testing.assert_allclose(np.asarray(ours.sharpness)[:5], ref,
                                rtol=1e-5)
-
-
-@pytest.mark.parametrize("variant", ["candidate", "cwide"])
-def test_spatial_pallas_shard_logic_interpret(variant, monkeypatch):
-    """The sharded body's Pallas fast path, validated shard-by-shard.
-
-    Running the full body under shard_map(8) in Mosaic interpret mode is
-    not viable on this build: interpret-mode kernels execute as
-    GIL-serialized io_callbacks, devices skew by 8x the per-shard kernel
-    time, and XLA:CPU's collective rendezvous hard-aborts the process
-    after 40 s of skew (xla/.../rendezvous.cc termination timeout) for
-    anything bigger than ~128px.  So this test replays exactly what each
-    shard computes — the same kernels on the same per-shard tables and
-    slices as spatial_report_body — sequentially in interpret mode, and
-    merges partials in numpy (the psum).  The shard_map wiring itself is
-    pinned by the XLA-path tests above, and Mosaic-compiled kernels under
-    a real shard_map run on-chip in tools/tpu_parity_check.py.
-
-    Checks: the per-shard palette pass psum-merge (run under BOTH kernel
-    variants via the env switch) is bit-exact vs the XLA sharded body,
-    and the one-hot MXU polar binning over per-shard flat_ids tables
-    matches to kernel-split accuracy."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    monkeypatch.setenv("PHOTOHIVE_PALETTE_KERNEL", variant)
-
-    from photohive_dsp_tpu.ops import fft as fftops
-    from photohive_dsp_tpu.ops import pallas_kernels as pk
-    from photohive_dsp_tpu.ops import quantize
-    from photohive_dsp_tpu.ops.colorspace import rgb_to_hsv, rgb_to_pgm
-    from photohive_dsp_tpu.ops.quantize import OctreeTables
-    from photohive_dsp_tpu.parallel.spatial import sharded_polar_tables
-
-    n = 8
-    h_img, w_img = 160, 192
-    img = structured_image(h_img, w_img, seed=5)
-    boxes, valid = ph.set_bounding_boxes([
-        dict(top=10, bottom=70, left=20, right=100),
-        dict(top=50, bottom=155, left=30, right=190),  # spans shards
-    ])
-    m = meshlib.make_mesh(data=1, spatial=8)
-    fn_xla = build_spatial_report(m, h_img, w_img, CFG, use_pallas=False)
-    ours_xla = fn_xla(jnp.asarray(img, jnp.float32), jnp.asarray(boxes),
-                      jnp.asarray(valid))
-
-    rgb = jnp.asarray(img, jnp.float32)
-    octree = OctreeTables.for_config(CFG)
-
-    # --- palette: margin-sort + per-shard candidate-LUT pass, psum-merged
-    h, s, v = rgb_to_hsv(rgb[0], rgb[1], rgb[2])
-    cells = quantize.assign_cells(h, s, v, CFG).reshape(-1)
-    counts = quantize.cell_counts(cells, CFG.num_cells)
-    total = h_img * w_img
-    with pltpu.force_tpu_interpret_mode():
-        sal = quantize.saliency_f32(counts, octree.s_v_f32, CFG)
-        order = pk.margin_sort(sal[None])[0]
-        assign = quantize.parent_assignment_from_order(counts, order, total,
-                                                       CFG, octree)
-        hf, sf, vf = (x.reshape(-1) for x in (h, s, v))
-        chunk = total // n
-        sums_k = None
-        for k in range(n):  # per-shard row slices, exactly the body's
-            sl = slice(k * chunk, (k + 1) * chunk)
-            part = quantize.palette_sums_by_k_auto(
-                hf[sl][None], sf[sl][None], vf[sl][None],
-                jax.tree.map(lambda x: x[None], assign), counts[None],
-                CFG, octree)[0]
-            sums_k = part if sums_k is None else sums_k + part
-        palette = quantize.palette_finalize_by_k(sums_k, assign, total,
-                                                 octree)
-    npal = int(ours_xla.palette_n)
-    assert int(palette.n_valid) == npal
-    np.testing.assert_array_equal(np.asarray(palette.parent_ids),
-                                  np.asarray(ours_xla.palette_ids))
-    # Per-slot pixel counts are integer-exact on both paths; pct itself
-    # can differ by 1 ULP because the jitted body's /total compiles to a
-    # reciprocal multiply while this eager finalize divides.
-    np.testing.assert_array_equal(
-        np.round(np.asarray(palette.percentages) * total),
-        np.round(np.asarray(ours_xla.palette_pct) * total))
-    np.testing.assert_allclose(np.asarray(palette.percentages),
-                               np.asarray(ours_xla.palette_pct),
-                               rtol=3e-7, atol=0)
-    # Averages carry the kernel's bf16-split sum accuracy: ~1-2 ULP of a
-    # ~2e6 hue sum -> ~1e-4 absolute after dividing by the slot count.
-    np.testing.assert_allclose(np.asarray(palette.hsv)[:npal],
-                               np.asarray(ours_xla.palette_hsv)[:npal],
-                               rtol=3e-5, atol=1e-4)
-
-    # --- polar binning: per-shard one-hot GEMM over flat_ids tables
-    tabs = sharded_polar_tables(h_img, w_img, CFG.angle_partitions,
-                                CFG.radius_partitions, n)
-    stats = np.asarray(ours_xla.rgb_stats)
-    dc = (stats[0] + stats[1] + stats[2]) / 3.0
-    pgm = rgb_to_pgm(rgb[0], rgb[1], rgb[2])
-    norm = np.asarray(fftops.magnitude_fft_normalized(pgm - dc))
-    wf = w_img // 2 + 1
-    norm_pad = np.pad(norm, ((0, 0), (0, tabs.wc * n - wf)))
-    nbins = CFG.angle_partitions * CFG.radius_partitions
-    sums = np.zeros(nbins, np.float32)
-    with pltpu.force_tpu_interpret_mode():
-        for k in range(n):  # column shards, the post-all_to_all layout
-            loc = norm_pad[:, k * tabs.wc:(k + 1) * tabs.wc]
-            sums += np.asarray(pk.polar_bin_sums(
-                jnp.asarray(loc.reshape(1, -1)),
-                jnp.asarray(tabs.flat_ids[k]), nbins)[0])
-    counts_g = np.asarray(tabs.counts)
-    means = np.where(counts_g > 0, sums / np.maximum(counts_g, 1), 0.0)
-    assert snr_db(np.asarray(ours_xla.blur_bins).ravel(), means) > 120
-
-
-_SPATIAL_SMOKE_CHILD = """
-import os, sys
-import numpy as np
-import jax; jax.config.update('jax_platforms', 'cpu')
-import jax.numpy as jnp
-sys.path.insert(0, {repo!r})
-from tests.util import structured_image
-import photohive_dsp_tpu as ph
-from photohive_dsp_tpu.parallel import mesh as meshlib
-from photohive_dsp_tpu.parallel.spatial import build_spatial_report
-img = structured_image(64, 64, seed=5)
-boxes, valid = ph.set_bounding_boxes([
-    dict(top=8, bottom=40, left=8, right=40)])
-# 4-device sub-mesh: the 8-way rendezvous aborts intermittently on this
-# 4-core host; 4-way fits the window reliably.
-m = meshlib.make_mesh(data=1, spatial=4, devices=jax.devices()[:4])
-def run():
-    fn = build_spatial_report(m, 64, 64, ph.ReportConfig(),
-                              use_pallas={use_pallas})
-    return fn(jnp.asarray(img, jnp.float32), jnp.asarray(boxes),
-              jnp.asarray(valid))
-if {use_pallas}:
-    from jax.experimental.pallas import tpu as pltpu
-    with pltpu.force_tpu_interpret_mode():
-        out = run()
-else:
-    out = run()
-np.savez({artifact!r}, n=np.asarray(out.palette_n),
-         ids=np.asarray(out.palette_ids), pct=np.asarray(out.palette_pct),
-         bins=np.asarray(out.blur_bins), sharp=np.asarray(out.sharpness))
-"""
-
-
-def test_spatial_pallas_full_body_interpret_smoke(tmp_path):
-    """Full sharded body with use_pallas=True under shard_map in
-    interpret mode, default-CI (VERDICT r4): each half runs in an
-    isolated CPU subprocess with retries (run_isolated) because
-    interpret+shard_map on XLA:CPU can abort/segfault the hosting
-    process even though the computed results are correct whenever the
-    run completes."""
-    import os
-
-    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    ref_npz = str(tmp_path / "ref.npz")
-    pal_npz = str(tmp_path / "pal.npz")
-    ref = run_isolated(_SPATIAL_SMOKE_CHILD.format(
-        repo=repo, use_pallas=False, artifact=ref_npz), ref_npz)
-    pal = run_isolated(_SPATIAL_SMOKE_CHILD.format(
-        repo=repo, use_pallas=True, artifact=pal_npz), pal_npz)
-    assert int(pal["n"]) == int(ref["n"])
-    np.testing.assert_array_equal(pal["ids"], ref["ids"])
-    np.testing.assert_array_equal(pal["pct"], ref["pct"])
-    assert snr_db(ref["bins"], pal["bins"]) > 120
-    np.testing.assert_array_equal(pal["sharp"], ref["sharp"])
-
-
-_DP_SMOKE_CHILD = """
-import os, sys
-import numpy as np
-import jax; jax.config.update('jax_platforms', 'cpu')
-import jax.numpy as jnp
-sys.path.insert(0, {repo!r})
-from tests.util import structured_image
-import photohive_dsp_tpu as ph
-from photohive_dsp_tpu.parallel import mesh as meshlib
-from photohive_dsp_tpu.parallel.spatial import build_dp_spatial_report
-imgs = np.stack([structured_image(64, 64, seed=s) for s in (3, 9, 11, 17)])
-boxes, valid = ph.set_bounding_boxes([
-    dict(top=8, bottom=40, left=8, right=40)])
-bb = jnp.broadcast_to(jnp.asarray(boxes), (4, 10, 4))
-bv = jnp.broadcast_to(jnp.asarray(valid), (4, 10))
-# data=2 with batch 4 -> B_local=2: the deferred kernel call sees a real
-# local batch, not a degenerate B=1.  spatial=2 on a 4-device sub-mesh
-# keeps the interpret-mode rendezvous fan-in small (the 8-way version
-# trips XLA:CPU's 40 s collective abort under callback skew).
-m = meshlib.make_mesh(data=2, spatial=2, devices=jax.devices()[:4])
-def run():
-    fn = build_dp_spatial_report(m, 4, 64, 64, ph.ReportConfig(),
-                                 use_pallas={use_pallas})
-    return fn(jnp.asarray(imgs, jnp.float32), bb, bv)
-if {use_pallas}:
-    from jax.experimental.pallas import tpu as pltpu
-    with pltpu.force_tpu_interpret_mode():
-        out = run()
-else:
-    out = run()
-np.savez({artifact!r}, n=np.asarray(out.palette_n),
-         ids=np.asarray(out.palette_ids), pct=np.asarray(out.palette_pct),
-         hsv=np.asarray(out.palette_hsv))
-"""
-
-
-def test_dp_spatial_pallas_deferred_palette_interpret_smoke(tmp_path):
-    """dp-spatial Pallas path in interpret mode, default-CI (VERDICT
-    r4).  Both halves run in isolated CPU subprocesses with retries:
-    interpret-mode shard_map on XLA:CPU can SIGSEGV at the next compile
-    or at interpreter exit (reproduced on code revisions months apart,
-    with the compilation cache disabled, after a clean result print —
-    the computed results are correct whenever the artifact is written),
-    and mixing the big XLA dp compile with the interpret program in one
-    process reliably triggers it.
-
-    Exercises the deferred-palette restructure: the palette pixel pass
-    runs ONCE per local batch outside the per-image vmap with a scalar
-    q8/q40 predicate (parallel/spatial.DeferredPalette), and must match
-    the XLA dp-spatial path exactly on ids/pct/n."""
-    import os
-
-    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    ref_npz = str(tmp_path / "dp_ref.npz")
-    pal_npz = str(tmp_path / "dp_pal.npz")
-    ref = run_isolated(_DP_SMOKE_CHILD.format(
-        repo=repo, use_pallas=False, artifact=ref_npz), ref_npz)
-    pal = run_isolated(_DP_SMOKE_CHILD.format(
-        repo=repo, use_pallas=True, artifact=pal_npz), pal_npz)
-    for i in range(4):
-        assert int(pal["n"][i]) == int(ref["n"][i])
-        np.testing.assert_array_equal(pal["ids"][i], ref["ids"][i])
-        np.testing.assert_array_equal(pal["pct"][i], ref["pct"][i])
-        n = int(ref["n"][i])
-        np.testing.assert_allclose(pal["hsv"][i][:n], ref["hsv"][i][:n],
-                                   rtol=1e-4, atol=1e-3)

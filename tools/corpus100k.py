@@ -1,5 +1,9 @@
 """Config #5 at full scale: 100k-image streaming corpus on 2 coordinated
-processes (VERDICT r4 #4).
+processes.
+
+CPU-only: every JAX process this tool starts runs with JAX_PLATFORMS=cpu
+pinned to its own cores, so it never opens a GPU (two JAX processes on one
+card would each try to reserve most of its memory).
 
 Produces, in order:
   1. a 100k-PNG synthetic mixed-res corpus (reuses scaling_bench.make_corpus
@@ -10,14 +14,13 @@ Produces, in order:
      every 5 s into rss.jsonl,
   4. eff = T1 / (2*T2)  (the measured 2-process scaling efficiency; at
      this scale the ~12 s per-process fixed startup is <1% — the
-     remaining loss is the same-socket DRAM/LLC contention term
-     SPEED.md eff2proc decomposed),
+     remaining loss is same-socket DRAM/LLC contention),
   5. a kill-and-resume demonstration: worker 0 of a THIRD run is killed
      (SIGKILL) mid-stream and restarted; the merged outputs must still
      be exactly-once (100k unique keys, no duplicates) — at 100k scale,
      not just the unit-test scale of test_corpus.py.
 
-Writes a JSON summary to tools/corpus100k_results.json and prints it.
+Writes a JSON summary to <workdir>/results.json and prints it.
 
 Usage: python tools/corpus100k.py [n] [existing_corpus_dir]
        PHOTOHIVE_100K_SKIP_T1=1 to skip the T1 arm (eff unmeasured)
@@ -25,7 +28,7 @@ Usage: python tools/corpus100k.py [n] [existing_corpus_dir]
 
 NOTE: run this ALONE on the host — pytest or compile jobs sharing the
 4 cores slow the pinned workers several-fold and corrupt the T1/T2
-efficiency comparison (learned the hard way in round 5).
+efficiency comparison.
 """
 
 import json
@@ -208,9 +211,7 @@ def main():
     # --- kill-and-resume at scale: fresh out dir, kill worker 0 mid-run,
     # restart it, verify exactly-once on the merged result
     if os.environ.get("PHOTOHIVE_100K_SKIP_RESUME"):
-        with open(os.path.join(
-                os.path.dirname(os.path.abspath(__file__)),
-                "corpus100k_results.json"), "w") as f:
+        with open(os.path.join(workdir, "results.json"), "w") as f:
             json.dump(results, f, indent=2)
         print(json.dumps(results), flush=True)
         return
@@ -223,14 +224,12 @@ def main():
     if procs[0].poll() is not None:
         # worker already finished: a SIGKILL now would make the
         # "resume" vacuous — report that honestly instead of recording
-        # a resilience check that never ran (self-review r5)
+        # a resilience check that never ran
         for p in procs:
             p.communicate(timeout=14400)
         results["kill_resume_exactly_once"] = "SKIPPED (run finished " \
             "before kill point; use a larger n)"
-        with open(os.path.join(
-                os.path.dirname(os.path.abspath(__file__)),
-                "corpus100k_results.json"), "w") as f:
+        with open(os.path.join(workdir, "results.json"), "w") as f:
             json.dump(results, f, indent=2)
         print(json.dumps(results), flush=True)
         return
@@ -259,8 +258,7 @@ def main():
     results["kill_resume_exactly_once"] = True
     print("kill+resume exactly-once OK", flush=True)
 
-    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                           "corpus100k_results.json"), "w") as f:
+    with open(os.path.join(workdir, "results.json"), "w") as f:
         json.dump(results, f, indent=2)
     print(json.dumps(results), flush=True)
 

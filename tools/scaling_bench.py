@@ -1,10 +1,11 @@
 """Scaling-efficiency measurements for BASELINE configs #4/#5.
 
 The reference has no multi-device story at all (single-threaded C except
-FFTW threads); these configs exist only for the TPU build.  Real multi-chip
-hardware is not available in this dev environment, so this tool produces
-the evidence that IS measurable here, plus the written methodology that
-transfers to real pods:
+FFTW threads); these configs exist only for the JAX build.  This tool is
+CPU-only: every JAX process it starts runs with JAX_PLATFORMS=cpu (virtual
+devices or coordinated CPU processes), so it never opens a GPU.  It
+measures sharding overheads and partition balance, plus the written
+methodology that transfers to real multi-GPU hosts:
 
   ``curve``   — data-axis scaling curve on 1/2/4/8 *virtual* CPU devices.
                 All virtual devices share this host's physical cores, so
@@ -15,8 +16,9 @@ transfers to real pods:
                 (partition + dispatch + any inserted collectives).
   ``hlo``     — counts collective ops in the compiled data-parallel
                 executable.  The data axis is embarrassingly parallel, so
-                the expected count is ZERO: on real hardware no ICI/DCN
-                traffic means per-chip throughput is independent of N.
+                the expected count is ZERO: on real hardware no
+                interconnect traffic means per-device throughput is
+                independent of N.
   ``corpus``  — BASELINE config #4 at reduced scale: N synthetic images
                 through the resumable ``process_corpus`` driver on the
                 8-virtual-device mesh (end-to-end: PNG decode, bucketing,
@@ -36,8 +38,8 @@ star), in terms measurable on real hardware:
     every num_hosts-th key of the sorted corpus (utils/io.py), chips
     within a host shard the batch axis, and the `hlo` mode verifies the
     executable contains no collectives.  (Spatially-sharded large images
-    do psum/ppermute/all_to_all, but only across the chips of ONE host —
-    rides ICI, never DCN.)
+    do psum/ppermute/all_to_all, but only across the GPUs of ONE host —
+    NVLink, never the network.)
   * s = (max_host_work - mean_host_work) / mean_host_work over the key
     partition.  The `hosts` mode measures it for a synthetic mixed-res
     corpus with randomly-assigned shapes; round-robin partitioning keeps
@@ -597,15 +599,7 @@ def main() -> None:
         print(f"== config #4 reduced-scale corpus ({args.n} images) ==")
         results["corpus"] = run_corpus(args.n)
 
-    out = os.path.join(REPO, "tools", "scaling_results.json")
-    existing = {}
-    if os.path.exists(out):
-        with open(out) as f:
-            existing = json.load(f)
-    existing.update(results)
-    with open(out, "w") as f:
-        json.dump(existing, f, indent=1)
-    print(f"wrote {out}")
+    print(json.dumps(results))
 
 
 if __name__ == "__main__":
